@@ -1,0 +1,98 @@
+"""Build and load the CUDA kernels in ``csrc/``.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
+``nvcc`` into its own shared library, loaded with ``ctypes`` (no PyTorch
+headers, so a build takes seconds). Libraries go into ``_build/`` beside
+this file, named by a hash of the source and the flags, so an edited
+source rebuilds and an unchanged one loads at once. ``build_all`` starts
+one ``nvcc`` per source, all together, and waits for all of them.
+
+Nothing here runs at import: the CPU tests import every module, and this
+machine may have no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+SOURCES = ("sgm_v2", "corr")
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
+
+_libs: dict[str, ctypes.CDLL] = {}
+build_seconds: dict[str, float] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _target(name: str) -> tuple[str, str]:
+    src = os.path.join(CSRC, name + ".cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(FLAGS).encode())
+    return src, os.path.join(BUILD_DIR,
+                             f"{name}-{digest.hexdigest()[:16]}.so")
+
+
+def build_all(names=SOURCES) -> dict[str, float]:
+    """Compile every missing library, one ``nvcc`` per source in parallel.
+    Returns the wall seconds each build took (0 for a cached one)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    for name in names:
+        src, out = _target(name)
+        if os.path.exists(out):
+            build_seconds.setdefault(name, 0.0)
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *FLAGS, "-o", tmp, src]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT),
+                       tmp, out, time.perf_counter())
+    errors = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        build_seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu:\n"
+                          + log.decode(errors="replace"))
+            continue
+        os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return {n: build_seconds[n] for n in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        _, out = _target(name)
+        if not os.path.exists(out):
+            build_all((name,))
+        lib = ctypes.CDLL(out)
+        _libs[name] = lib
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry reported a CUDA error (its cudaGetLastError)."""
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {what} failed to launch: "
+                           f"cudaError {rc}")
