@@ -4,22 +4,36 @@
 
 1. Builds the CUDA kernels from ``moving_object_detector_tpu_torch/csrc``
    (one nvcc per source, in parallel) and prints the build seconds.
-2. Holds each kernel against its plain PyTorch version on the card, at
-   the serving shapes and at an odd shape: the SGM deltas and disparity
-   bitwise, the correlation within 1e-5. Prints each kernel's time and
-   its plain version's time (CUDA events, median after warm-up).
+2. Holds each of the eight kernels against its plain PyTorch version on
+   the card, at the serving shapes and at an odd shape: the SGM deltas and
+   disparity bitwise, the correlation within 1e-5, the windowed gather
+   equal with NaN positions equal, the connected components exactly on six
+   kinds of input (three runs each), the cluster stats exactly (min / max
+   by value), the fused scene-flow construct with exact NaN masks and
+   values within 1e-5. Prints each kernel's time and its plain version's
+   time (CUDA events, median after warm-up).
 3. Runs ``pipeline.detect_step`` at the KITTI serving point (376 x 1242,
    pwc_v7 weights, flow and SGM at half resolution, two-window clusterer
-   crop) on frames made from ``tests/fixtures/real_textures.npz``: a
-   textured background in depth strips and a pasted patch moving 12 px a
-   frame. Checks shapes, finiteness, the known strip disparities and the
-   patch's flow, that every kernel launched on this path, and that the
-   same frames through the plain versions give the same disparity and
-   nearly the same flow. Prints ms/frame, pairs/s and per-stage ms.
-4. Profiles three serving frames with torch.profiler: device busy time
+   crop, default backends: windowed gather, CC and cluster-stats kernels)
+   on frames made from ``tests/fixtures/real_textures.npz``: a textured
+   background in depth strips and a pasted patch moving 12 px a frame.
+   Checks shapes, finiteness, the known strip disparities and the patch's
+   flow, and that every kernel of this path launched on it. Prints
+   ms/frame, pairs/s and per-stage ms.
+4. Runs the same frames with the gather, CC and stats in their plain
+   forms and requires identical detections, label images and overflow;
+   then with every kernel in its plain form and requires the same
+   disparity and nearly the same flow. No kernel may launch in a plain
+   run.
+5. Runs 4 frames with a second moving patch near the right border, so
+   that the clusterer takes its two-window branch (CC and stats launch
+   twice a frame), and 6 frames with ``gather_backend="fused"``, which must
+   launch the fused kernel once a frame, the gather never, and give the
+   default path's detections.
+6. Profiles three serving frames with torch.profiler: device busy time
    per frame, kernel launches per frame, the kernels with the most device
    time.
-5. Prints the card's name and power limit, a ``{"kernels": [...]}`` line
+7. Prints the card's name and power limit, a ``{"kernels": [...]}`` line
    and, last, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, before printing any result, without CUDA or without the
@@ -55,6 +69,12 @@ SHIFT = 12  # patch motion, px per frame
 STRIPS = ((0, 300, 24), (300, 640, 14), (640, 950, 30), (950, W, 18))
 PATCH_Y, PATCH_H, PATCH_W, PATCH_D = 140, 120, 200, 44
 TOL_FLOW_MEAN = 0.05  # px, kernel vs plain correlation through the bf16 net
+PATCH2_X, PATCH2_D = 990, 36  # the second patch of the two-window frames
+CROP_H, CROP_W = 192, 512  # ClustererConfig.cc_crop_h / cc_crop_w
+ODD_H, ODD_W = 125, 350
+PLAIN_CC_ITERS = 1 << 14  # rounds enough for the plain fixpoint to converge
+OPS_PER_EDGE_TEST = 6  # 2 loads, subtract, abs, 2 compares (CC)
+OPS_PER_FUSED_PIXEL = 100  # about 60 f32 operations and 10 divisions
 
 
 def log(msg: str) -> None:
@@ -82,6 +102,35 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``: the kernels' own time summed by
+    torch.profiler over ``reps`` calls, without the host's launch path
+    that ``median_ms`` includes. A profiler run that comes back without
+    a kernel record is repeated, at most twice; after that the time is
+    reported as not measured (NaN), since it is an extra beside ``ms``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(3):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.device_time for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / 1e3 / reps
+        log(f"device_ms: no kernel record in profiler run {attempt}")
+    return float("nan")
+
+
+def timed(kernel, plain) -> dict:
+    """The three measured times of a kernel record."""
+    return dict(ms=median_ms(kernel), device_ms=device_ms(kernel),
+                plain_ms=median_ms(plain, reps=5, warmup=1))
+
+
 def bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
@@ -89,8 +138,9 @@ def bound_ms(nbytes: float, ops: float):
                                  "operations")
 
 
-def make_frames():
-    """(left, right) f32 pairs: strips of known disparity, a moving patch."""
+def make_frames(n_frames=N_FRAMES, second_patch=False):
+    """(left, right) f32 pairs: strips of known disparity, a moving patch;
+    with ``second_patch`` another one near the right border."""
     tex = np.load(os.path.join(ROOT, "tests", "fixtures",
                                "real_textures.npz"))
     bg = np.concatenate([tex["china"][:H], tex["flower"][:H]], axis=1)
@@ -101,13 +151,19 @@ def make_frames():
     for x0, x1, d in STRIPS:
         right_bg[:, x0:x1] = np.roll(bg, -d, axis=1)[:, x0:x1]
     frames = []
-    for k in range(N_FRAMES):
+    patch2 = tex["hopper"][240:240 + PATCH_H,
+                           300:300 + PATCH_W].astype(np.float32) / 255.0
+    for k in range(n_frames):
         x = 360 + SHIFT * k
         left = bg.copy()
         right = right_bg.copy()
-        left[PATCH_Y:PATCH_Y + PATCH_H, x:x + PATCH_W] = patch
-        right[PATCH_Y:PATCH_Y + PATCH_H,
-              x - PATCH_D:x - PATCH_D + PATCH_W] = patch
+        pasted = [(patch, x, PATCH_D)]
+        if second_patch:
+            pasted.append((patch2, PATCH2_X + SHIFT * k, PATCH2_D))
+        for img, px, pd in pasted:
+            left[PATCH_Y:PATCH_Y + PATCH_H, px:px + PATCH_W] = img
+            right[PATCH_Y:PATCH_Y + PATCH_H,
+                  px - pd:px - pd + PATCH_W] = img
         frames.append((left, right, x))
     return frames
 
@@ -170,8 +226,7 @@ def check_sgm_kernels(dev, report):
         report[name] = dict(
             name=name, route="cuda",
             source="moving_object_detector_tpu_torch/csrc/sgm_v2.cu",
-            replaces=replaces, max_abs_err=0.0,
-            ms=median_ms(kern), plain_ms=median_ms(plain, reps=5, warmup=1),
+            replaces=replaces, max_abs_err=0.0, **timed(kern, plain),
             bound_ms=bms, bound_by=by, library_ms=None)
 
 
@@ -183,7 +238,7 @@ def check_corr_kernel(dev, report):
 
     g = torch.Generator(device=dev).manual_seed(0)
     err = 0.0
-    ms = plain_ms = t_bytes = t_ops = 0.0
+    ms = dev_ms = plain_ms = t_bytes = t_ops = 0.0
     for c, h, w in CORR_LEVELS + ((64, 125, 350), (7, 13, 37)):
         for r in (4, 2):
             f1 = torch.randn(1, c, h, w, device=dev, generator=g)
@@ -195,9 +250,11 @@ def check_corr_kernel(dev, report):
                 raise AssertionError(f"corr differs at {c}x{h}x{w} r={r}: {e}")
             err = max(err, e)
         if (c, h, w) in CORR_LEVELS:  # the main path's four calls
-            ms += median_ms(lambda: flow_corr_cuda.correlation(f1, f2, 4))
-            plain_ms += median_ms(lambda: flow_ops.correlation(f1, f2, 4),
-                                  reps=5, warmup=1)
+            t = timed(lambda: flow_corr_cuda.correlation(f1, f2, 4),
+                      lambda: flow_ops.correlation(f1, f2, 4))
+            ms += t["ms"]
+            dev_ms += t["device_ms"]
+            plain_ms += t["plain_ms"]
             t_bytes += (2 * c + 81) * h * w * 4
             t_ops += 2 * 81 * c * h * w
     log(f"corr kernel within {err:.3g} of plain (tolerance 1e-5)")
@@ -207,11 +264,295 @@ def check_corr_kernel(dev, report):
         source="moving_object_detector_tpu_torch/csrc/corr.cu",
         replaces="ops/flow_corr_pallas.py:88 correlation_pallas "
                  "(_corr_kernel :37)",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=None)
+        max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=None)
 
 
-def run_frames(model, config, stereo, frames, dev, stage_ms=None):
+def equal_with_nans(a, b) -> bool:
+    return (torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+
+
+def smooth_flow(rng, h, w, amp=12.0):
+    """(h, w, 2) flow that varies smoothly, as between two video frames."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    fx = amp * np.sin(xx / 90.0 + yy / 140.0) + rng.normal(0, 0.3, (h, w))
+    fy = 0.4 * amp * np.cos(xx / 120.0 - yy / 60.0) + rng.normal(0, 0.3,
+                                                                 (h, w))
+    return np.stack([fx, fy], axis=-1).astype(np.float32)
+
+
+def check_gather_kernel(dev, report):
+    from moving_object_detector_tpu_torch.ops import gather_cuda, geometry
+
+    rng = np.random.default_rng(1)
+    serving = None
+    for h, w in ((H, W), (ODD_H, ODD_W)):
+        src = rng.uniform(1.0, 100.0, (h, w)).astype(np.float32)
+        src[rng.random((h, w)) < 0.05] = np.nan  # holes
+        flow = smooth_flow(rng, h, w)
+        beyond = rng.random((h, w)) < 0.01  # outliers beyond the window
+        flow[beyond] = rng.choice([-1.0, 1.0], (int(beyond.sum()), 2)) * \
+            rng.uniform(30, 400, (int(beyond.sum()), 2))
+        vv, uu = np.mgrid[0:h, 0:w]
+        up = np.rint(uu - flow[..., 0]).astype(np.int32)
+        vp = np.rint(vv - flow[..., 1]).astype(np.int32)
+        outside = rng.random((h, w)) < 0.01  # and outside the image
+        up[outside] = rng.choice([-5, -1, w, w + 300], int(outside.sum()))
+        args = [torch.from_numpy(x).to(dev) for x in (src, vp, up)]
+        out = gather_cuda.window_gather(*args, 16, 128)
+        ref = geometry.window_gather(*args, 16, 128)
+        if not equal_with_nans(out, ref):
+            raise AssertionError(f"gather differs from plain at {h}x{w}")
+        n_nan = int(torch.isnan(out).sum())
+        if not 0 < n_nan < h * w // 2:
+            raise AssertionError(f"gather check is vacuous: {n_nan} NaN")
+        log(f"gather kernel equal to plain at {h}x{w} (NaN positions "
+            f"equal, {n_nan} NaN of {h * w})")
+        if serving is None:
+            serving = args
+    src, vp, up = serving
+    n = H * W
+    vc, uc = vp.clamp(0, H - 1).long(), up.clamp(0, W - 1).long()
+    index_ms = median_ms(lambda: src[vc, uc])
+    log(f"plain advanced indexing src[v, u] alone (no window, no bounds): "
+        f"{index_ms:.4f} ms")
+    bms, by = bound_ms(16 * n, 12 * n)
+    report["gather"] = dict(
+        name="gather", route="cuda",
+        source="moving_object_detector_tpu_torch/csrc/gather.cu",
+        replaces="ops/gather_pallas.py:70 window_gather_pallas "
+                 "(_window_gather_kernel :43)",
+        max_abs_err=0.0,
+        **timed(lambda: gather_cuda.window_gather(src, vp, up, 16, 128),
+                lambda: geometry.window_gather(src, vp, up, 16, 128)),
+        bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def cc_case(name, h, w, rng):
+    """(dynamic, depth) numpy pair of one kind of CC input."""
+    depth = (np.round(rng.random((h, w)) * 3) * 0.4 + 4.0).astype(np.float32)
+    depth += rng.uniform(-0.05, 0.05, (h, w)).astype(np.float32)
+    if name == "blobs":
+        dyn = np.zeros((h, w), bool)
+        yy, xx = np.mgrid[0:h, 0:w]
+        for _ in range(12):
+            cy, cx = rng.integers(0, h), rng.integers(0, w)
+            ry, rx = rng.integers(8, 50), rng.integers(8, 90)
+            dyn |= ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1.0
+        dyn &= rng.random((h, w)) < 0.9
+        depth[rng.random((h, w)) < 0.02] = np.nan
+    elif name == "one_component":
+        dyn = np.ones((h, w), bool)
+        depth[:] = 5.0
+    elif name == "serpentine":  # one pixel wide, winding down the frame
+        dyn = np.zeros((h, w), bool)
+        dyn[::6, :] = True
+        for k, r in enumerate(range(0, h - 6, 6)):
+            dyn[r:r + 6, w - 1 if k % 2 == 0 else 0] = True
+        depth[:] = 5.0
+    elif name == "dense":
+        dyn = rng.random((h, w)) < 0.5
+    elif name == "empty":
+        dyn = np.zeros((h, w), bool)
+    else:
+        raise ValueError(name)
+    return dyn, depth
+
+
+def check_cc_kernel(dev, report):
+    from moving_object_detector_tpu_torch.ops import clustering, \
+        clustering_cuda
+
+    rng = np.random.default_rng(2)
+    cases = [("blobs", CROP_H, CROP_W, 4), ("blobs", H, W, 4),
+             ("one_component", H, W, 4), ("serpentine", H, W, 4),
+             ("dense", H, W, 4), ("blobs", H, W, 2), ("empty", H, W, 4),
+             ("blobs", ODD_H, ODD_W, 4), ("dense", ODD_H, ODD_W, 3)]
+    serving = None
+    for name, h, w, radius in cases:
+        dyn_np, z_np = cc_case(name, h, w, rng)
+        dyn = torch.from_numpy(dyn_np).to(dev)
+        z = torch.from_numpy(z_np).to(dev)
+        nd = torch.tensor(radius, dtype=torch.int32, device=dev)
+        dd = torch.tensor(0.15, dtype=torch.float32, device=dev)
+        t0 = time.perf_counter()
+        ref, iters = clustering.connected_components(
+            dyn, z, dd, neighbor_distance=nd, max_iters=PLAIN_CC_ITERS,
+            stencil_radius=4, return_iters=True)
+        sync(dev)
+        plain_s = time.perf_counter() - t0
+        if iters >= PLAIN_CC_ITERS:
+            raise AssertionError(f"plain CC did not converge on {name}")
+        for run in range(3):  # a racy union would differ between runs
+            out = clustering_cuda.connected_components(
+                dyn, z, dd, neighbor_distance=nd, stencil_radius=4,
+                max_iters=PLAIN_CC_ITERS)  # read by the plain form alone
+            if not torch.equal(out, ref):
+                bad = int((out != ref).sum())
+                raise AssertionError(
+                    f"cc differs from plain on {name} {h}x{w} radius "
+                    f"{radius}, run {run}: {bad} pixels")
+        n_comp = int(torch.unique(ref).numel()) - int(not dyn_np.all())
+        log(f"cc kernel equal to plain on {name} {h}x{w} radius {radius}: "
+            f"{int(dyn_np.sum())} dynamic pixels, {n_comp} components, "
+            f"plain fixpoint {iters} rounds in {plain_s:.2f} s, 3 kernel "
+            f"runs identical")
+        if serving is None:
+            serving = (dyn, z, dd, nd, dyn_np, z_np)
+        if h == H and radius == 4 and name != "empty":
+            run = lambda: clustering_cuda.connected_components(
+                dyn, z, dd, neighbor_distance=nd, stencil_radius=4)
+            log(f"cc kernel at {h}x{w} ({name}): {median_ms(run):.4f} ms, "
+                f"on the device {device_ms(run):.4f} ms")
+    dyn, z, dd, nd, dyn_np, z_np = serving
+    n = CROP_H * CROP_W
+    # Edge tests this input needs: 24 forward offsets per dynamic pixel
+    # with a finite depth.
+    tests = 24 * int((dyn_np & np.isfinite(z_np)).sum())
+    bms, by = bound_ms(9 * n, OPS_PER_EDGE_TEST * tests)
+    report["cc"] = dict(
+        name="cc", route="cuda",
+        source="moving_object_detector_tpu_torch/csrc/cc.cu",
+        replaces="ops/clustering_pallas.py:233 connected_components_pallas "
+                 "(_cc_kernel :50)",
+        max_abs_err=0.0,
+        **timed(lambda: clustering_cuda.connected_components(
+            dyn, z, dd, neighbor_distance=nd, stencil_radius=4),
+            lambda: clustering.connected_components(
+                dyn, z, dd, neighbor_distance=nd, max_iters=PLAIN_CC_ITERS,
+                stencil_radius=4)),
+        bound_ms=bms, bound_by=by, library_ms=None)
+    return serving
+
+
+def check_stats_kernel(dev, report, cc_serving):
+    from moving_object_detector_tpu_torch.ops import cluster_stats, \
+        cluster_stats_cuda, clustering_cuda
+
+    rng = np.random.default_rng(3)
+    serving = None
+    for h, w, cap in ((CROP_H, CROP_W, 16), (ODD_H, ODD_W, 32)):
+        if (h, w) == (CROP_H, CROP_W):
+            dyn, z, dd, nd = cc_serving[:4]
+        else:
+            dyn_np, z_np = cc_case("blobs", h, w, rng)
+            dyn = torch.from_numpy(dyn_np).to(dev)
+            z = torch.from_numpy(z_np).to(dev)
+            dd, nd = 0.15, 4
+        labels = clustering_cuda.connected_components(
+            dyn, z, dd, neighbor_distance=nd, stencil_radius=4)
+        n = h * w
+        found, sizes = torch.unique(labels[labels < n], return_counts=True)
+        found = found[torch.argsort(sizes, descending=True)]
+        k = min(cap - cap // 4, found.numel())  # the last slots stay unused
+        roots = torch.full((cap,), n, dtype=torch.int32, device=dev)
+        roots[:k] = torch.sort(found[:k]).values.to(torch.int32)
+        # The cloud of a larger frame, cropped: a strided view, as on the
+        # main path; NaN outside the selected clusters.
+        frame = torch.randn(h + 9, w + 14, 3, device=dev) * 5.0
+        points = frame[4:4 + h, 7:7 + w]
+        points[~torch.isin(labels, roots[:k])] = float("nan")
+        out = cluster_stats_cuda.cluster_stats(labels, points, roots)
+        ref = cluster_stats.cluster_stats(labels, points, roots)
+        if not (torch.equal(out[0], ref[0]) and torch.equal(out[3], ref[3])):
+            raise AssertionError(f"cluster_stats cid/csize differ at {h}x{w}")
+        # By value: a zero may carry either sign.
+        if not (bool((out[1] == ref[1]).all())
+                and bool((out[2] == ref[2]).all())):
+            raise AssertionError(f"cluster_stats min/max differ at {h}x{w}")
+        if k == 0 or int(out[3].sum()) == 0:
+            raise AssertionError("cluster_stats check is vacuous")
+        log(f"cluster_stats kernel equal to plain at {h}x{w}: {k} of {cap} "
+            f"slots used, {int(out[3].sum())} member pixels")
+        if serving is None:
+            serving = (labels, points, roots)
+    labels, points, roots = serving
+    n = CROP_H * CROP_W
+    bms, by = bound_ms(20 * n, 16 * n)
+    report["cluster_stats"] = dict(
+        name="cluster_stats", route="cuda",
+        source="moving_object_detector_tpu_torch/csrc/cluster_stats.cu",
+        replaces="ops/cluster_stats_pallas.py:66 cluster_stats_pallas "
+                 "(_stats_kernel :33)",
+        max_abs_err=0.0,
+        **timed(lambda: cluster_stats_cuda.cluster_stats(labels, points,
+                                                         roots),
+                lambda: cluster_stats.cluster_stats(labels, points, roots)),
+        bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def check_fused_kernel(dev, report):
+    from moving_object_detector_tpu_torch.ops import sceneflow_cuda
+
+    rng = np.random.default_rng(4)
+    serving = None
+    err = 0.0
+    for h, w in ((H, W), (ODD_H, ODD_W)):
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        base = 30.0 + 18.0 * np.sin(xx / 150.0) * np.cos(yy / 80.0)
+        d_now = (base + rng.normal(0, 0.2, (h, w))).astype(np.float32)
+        d_prev = (base + rng.normal(0, 0.3, (h, w))).astype(np.float32)
+        d_now[rng.random((h, w)) < 0.1] = -1.0  # invalid pixels
+        d_prev[rng.random((h, w)) < 0.1] = -1.0
+        d_prev[rng.random((h, w)) < 0.02] = np.nan
+        d_prev[5:9] = 0.0
+        flow = smooth_flow(rng, h, w)
+        far = rng.random((h, w)) < 0.02  # outliers
+        flow[far] = rng.uniform(-500, 500, (int(far.sum()), 2))
+        flow[rng.random((h, w)) < 0.01] = np.nan
+        params = torch.tensor(
+            [721.5, 720.0, w / 2 - 3, h / 2 + 2,
+             721.5, 0.54, 0.5, 127.0, 721.5, 0.54, 0.5, 127.0,
+             0.99999, -0.001, 0.004, 0.05, 0.001, 0.99999, -0.002, -0.02,
+             -0.004, 0.002, 0.99999, 0.3, 0.1, 5.0, 30.0],
+            dtype=torch.float32, device=dev)  # a non-identity transform
+        args = [torch.from_numpy(x).to(dev) for x in (d_now, d_prev, flow)]
+        out = sceneflow_cuda.scene_flow_fused_cuda(*args, params)
+        ref = sceneflow_cuda.scene_flow_fused(*args, params)
+        names = ("points", "velocity", "static_flow")
+        # 1e-5 relative; the static flow is a difference of pixel
+        # coordinates, so its 1e-5 is relative to the frame's extent.
+        for name, a, b, scale in zip(names, out, ref,
+                                     (0.0, 0.0, float(max(h, w)))):
+            if not torch.equal(torch.isnan(a), torch.isnan(b)):
+                raise AssertionError(f"fused {name} NaN masks differ at "
+                                     f"{h}x{w}")
+            a, b = torch.nan_to_num(a), torch.nan_to_num(b)
+            diff = (a - b).abs()
+            if not bool((diff <= 1e-5 * (b.abs() + scale) + 1e-30).all()):
+                raise AssertionError(
+                    f"fused {name} differs at {h}x{w}: max {diff.max()}")
+            err = max(err, float(diff.max()))
+        vel = out[1]
+        n_vel = int(torch.isfinite(vel[..., 0]).sum())
+        n_dyn = int((torch.nan_to_num(vel).abs().sum(-1) > 0).sum())
+        some_static = n_dyn < n_vel or (h, w) != (H, W)
+        if not (0 < n_dyn <= n_vel < h * w and some_static):
+            raise AssertionError("fused check is vacuous")
+        log(f"fused scene-flow kernel matches plain at {h}x{w}: NaN masks "
+            f"equal, {n_vel} pixels with velocity, {n_dyn} dynamic")
+        if serving is None:
+            serving = (args, params)
+    args, params = serving
+    n = H * W
+    bms, by = bound_ms(48 * n, OPS_PER_FUSED_PIXEL * n)
+    report["sceneflow_fused"] = dict(
+        name="sceneflow_fused", route="cuda",
+        source="moving_object_detector_tpu_torch/csrc/sceneflow_fused.cu",
+        replaces="ops/sceneflow_pallas.py:187 scene_flow_fused_pallas "
+                 "(_fused_kernel :49)",
+        max_abs_err=err,
+        **timed(lambda: sceneflow_cuda.scene_flow_fused_cuda(*args, params),
+                lambda: sceneflow_cuda.scene_flow_fused(*args, params)),
+        bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def run_frames(model, config, stereo, frames, dev, stage_ms=None,
+               cc_per_frame=None):
+    """Drive ``detect_step`` over the frames from a fresh state: (outputs,
+    ms per step). ``cc_per_frame`` receives the CC launches of each
+    frame."""
     from moving_object_detector_tpu_torch.pipeline import (
         PipelineState,
         detect_step,
@@ -222,6 +563,7 @@ def run_frames(model, config, stereo, frames, dev, stage_ms=None):
     for k, (left, right, _) in enumerate(frames):
         lt = torch.from_numpy(left).to(dev)
         rt = torch.from_numpy(right).to(dev)
+        cc_before = read_counts()["cc"]
         sync(dev)
         t0 = time.perf_counter()
         state, out = detect_step(model, state, lt, rt, 0.1 * k, stereo,
@@ -229,6 +571,8 @@ def run_frames(model, config, stereo, frames, dev, stage_ms=None):
         sync(dev)
         step_ms.append((time.perf_counter() - t0) * 1e3)
         outs.append(out)
+        if cc_per_frame is not None:
+            cc_per_frame.append(read_counts()["cc"] - cc_before)
     return outs, step_ms
 
 
@@ -267,7 +611,8 @@ def check_outputs(outs, frames, cap):
         "the moving patch was never detected"
 
 
-def profile_frames(model, config, stereo, frames, dev, step_ms: float):
+def profile_frames(model, config, stereo, frames, dev, step_ms: float,
+                   what: str):
     """torch.profiler over the serving frames: device busy ms per frame
     (and its share of the unprofiled median ``step_ms``; the profiler
     itself slows the host), kernel launches per frame, top kernels."""
@@ -283,7 +628,7 @@ def profile_frames(model, config, stereo, frames, dev, step_ms: float):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.device_time for e in kernels) / 1e3
     n = len(frames)
-    log(f"profile over {n} frames: device busy {busy_ms / n:.2f} ms/frame "
+    log(f"profile of {what} over {n} frames: device busy {busy_ms / n:.2f} ms/frame "
         f"= {100 * busy_ms / n / step_ms:.1f}% of the unprofiled median "
         f"{step_ms:.2f} ms/frame; {len(kernels) / n:.0f} kernel "
         f"launches/frame; profiled wall {wall_ms / n:.0f} ms/frame")
@@ -296,16 +641,80 @@ def profile_frames(model, config, stereo, frames, dev, step_ms: float):
         log(f"  {t / n:8.3f} ms/frame {c / n:7.1f} calls/frame  {name[:90]}")
 
 
+def kernel_counters():
+    """Every wrapper's launch counter, by kernel name."""
+    from moving_object_detector_tpu_torch.ops import (
+        cluster_stats_cuda,
+        clustering_cuda,
+        flow_corr_cuda,
+        gather_cuda,
+        sceneflow_cuda,
+        sgm_cuda,
+    )
+
+    return (sgm_cuda.LAUNCHES, flow_corr_cuda.LAUNCHES, gather_cuda.LAUNCHES,
+            clustering_cuda.LAUNCHES, cluster_stats_cuda.LAUNCHES,
+            sceneflow_cuda.LAUNCHES)
+
+
+def reset_counts() -> None:
+    for c in kernel_counters():
+        for k in c:
+            c[k] = 0
+
+
+def read_counts() -> dict:
+    return {k: v for c in kernel_counters() for k, v in c.items()}
+
+
+def matches_outside_window(outs, sf_config) -> int:
+    """Pixels of these frames whose flow-matched previous pixel lies inside
+    the image but outside the covered window: there the windowed and the
+    plain gather differ by design."""
+    from moving_object_detector_tpu_torch.ops import geometry
+
+    total = 0
+    for out in outs:
+        flow = out.flow
+        h, w = flow.shape[:2]
+        u, v = geometry.pixel_grid(h, w, flow.device)
+        finite = torch.isfinite(flow).all(-1)
+        safe = torch.where(finite[..., None], flow, torch.zeros_like(flow))
+        up = torch.round(u - safe[..., 0]).to(torch.int32)
+        vp = torch.round(v - safe[..., 1]).to(torch.int32)
+        inside = (up >= 0) & (up < w) & (vp >= 0) & (vp < h)
+        hit = torch.isfinite(geometry.window_gather(
+            torch.ones((h, w), device=flow.device), vp, up,
+            sf_config.match_v_radius, sf_config.match_h_radius))
+        total += int((finite & inside & ~hit).sum())
+    return total
+
+
+def compare_detections(outs_a, outs_b, what: str, atol: float) -> None:
+    """Validity, ids, label images and overflow identical; centers, boxes
+    and velocities within ``atol`` (0 = identical)."""
+    for k, (a, b) in enumerate(zip(outs_a, outs_b)):
+        da, db = a.detections, b.detections
+        same = (torch.equal(da.valid, db.valid) and torch.equal(da.id, db.id)
+                and torch.equal(a.label_image, b.label_image)
+                and int(a.cluster_overflow) == int(b.cluster_overflow))
+        if not same:
+            bad = int((a.label_image != b.label_image).sum())
+            raise AssertionError(
+                f"{what}: frame {k} detections differ ({bad} label pixels, "
+                f"valid {da.valid.tolist()} / {db.valid.tolist()})")
+        for f in ("center", "bounding_box", "velocity"):
+            diff = float((getattr(da, f) - getattr(db, f)).abs().max())
+            if not diff <= atol:
+                raise AssertionError(f"{what}: frame {k} {f} differs by "
+                                     f"{diff} (tolerance {atol})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    from moving_object_detector_tpu_torch import _build, config as cfgmod
-    from moving_object_detector_tpu_torch.ops import flow_corr_cuda, sgm_cuda
-    from moving_object_detector_tpu_torch.types import StereoModel
-    from moving_object_detector_tpu_torch.utils.checkpoint import (
-        load_flow_checkpoint,
-    )
+    from moving_object_detector_tpu_torch import _build
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -314,58 +723,130 @@ def main() -> int:
         + json.dumps({k: round(v, 2) for k, v in per_source.items()}))
 
     report = {}
+    run_checks_and_paths(dev, report)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    log(smi)
+    for r in report.values():  # NaN is not JSON: not measured is null
+        if r["device_ms"] != r["device_ms"]:
+            r["device_ms"] = None
+    print(json.dumps({"kernels": list(report.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_checks_and_paths(dev, report) -> None:
+    """Phases 2 to 6 of the module docstring; raises on the first failure."""
+    from moving_object_detector_tpu_torch import config as cfgmod
+    from moving_object_detector_tpu_torch.types import StereoModel
+    from moving_object_detector_tpu_torch.utils.checkpoint import (
+        load_flow_checkpoint,
+    )
+
     check_sgm_kernels(dev, report)
     check_corr_kernel(dev, report)
+    check_gather_kernel(dev, report)
+    cc_serving = check_cc_kernel(dev, report)
+    check_stats_kernel(dev, report, cc_serving)
+    check_fused_kernel(dev, report)
     for r in report.values():
         log(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3g} "
-            f"ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+            f"ms {r['ms']:.4f} (on the device {r['device_ms']:.4f}) "
+            f"plain_ms {r['plain_ms']:.4f} "
             f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
 
-    config = cfgmod.PipelineConfig(height=H, width=W, flow_input_scale=2,
-                                   sgm_input_scale=2)
+    config = cfgmod.PipelineConfig(
+        height=H, width=W, flow_input_scale=2, sgm_input_scale=2,
+        clusterer=cfgmod.ClustererConfig(cc_crop_h=CROP_H, cc_crop_w=CROP_W))
+    if config.clusterer != cfgmod.ClustererConfig():
+        raise AssertionError("CROP_H / CROP_W are not the serving defaults")
     model, fcfg = load_flow_checkpoint(
         os.path.join(ROOT, "weights", "pwc_v7.fp16.npz"),
         cfgmod.FlowNetConfig(), device=dev)
     config = config.replace(flownet=fcfg)
+    # The serving backends: "auto" is the kernels on the card.
+    assert config.scene_flow.gather_backend == "auto"
+    assert config.clusterer.cc_backend == "auto"
     stereo = StereoModel.create(fx=721.5, fy=721.5, cx=W / 2.0, cy=H / 2.0,
                                 baseline=0.54, device=dev)
     frames = make_frames()
     run_frames(model, config, stereo, frames[:2], dev)  # warm-up
 
-    counters = (sgm_cuda.LAUNCHES, flow_corr_cuda.LAUNCHES)
-    for c in counters:
-        for k in c:
-            c[k] = 0
-    outs, step_ms = run_frames(model, config, stereo, frames, dev)
-    launches = {k: v for c in counters for k, v in c.items()}
-    log("launches on the main path: " + json.dumps(launches))
+    # The main path: default backends, every kernel but the fused construct.
+    reset_counts()
+    cc_per_frame = []
+    outs, step_ms = run_frames(model, config, stereo, frames, dev,
+                               cc_per_frame=cc_per_frame)
+    launches = read_counts()
+    log("launches on the main path: " + json.dumps(launches)
+        + f"; cc launches per frame {cc_per_frame}")
+    if launches.pop("sceneflow_fused") != 0:
+        raise AssertionError("the default path launched the fused construct")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on the path")
         report[name]["launches"] = n
+    busy = sum(int(o.detections.valid.any()) for o in outs)
+    for name in ("gather", "cc", "cluster_stats"):
+        floor = len(frames) if name == "gather" else busy
+        if launches[name] < floor:
+            raise AssertionError(f"{name} launched {launches[name]} times, "
+                                 f"under once a frame ({floor})")
     check_outputs(outs, frames, lambda o: o.capacity)
     dets = [int(o.detections.valid.sum()) for o in outs]
     tracks = [int(o.tracked.objects.valid.sum()) for o in outs]
     med = statistics.median(step_ms[1:])
-    log(f"detect_step {H}x{W} pwc_v7 flow/2 sgm/2: median {med:.2f} ms/frame"
+    log(f"detect_step {H}x{W} pwc_v7 flow/2 sgm/2, windowed gather, CC and "
+        f"stats kernels: median {med:.2f} ms/frame"
         f" = {1e3 / med:.2f} pairs/s over {len(step_ms) - 1} frames; "
         f"all ms {[round(t, 2) for t in step_ms]}")
     log(f"detections per frame {dets}; published tracks {tracks}")
+    log(f"matched pixels outside the gather window over {len(outs)} frames: "
+        f"{matches_outside_window(outs, config.scene_flow)}")
 
     stage_ms = {}
     run_frames(model, config, stereo, frames, dev, stage_ms=stage_ms)
     log("per-stage ms/frame (synchronized): " + json.dumps(
         {k: round(v / len(frames), 3) for k, v in stage_ms.items()}))
 
-    plain = config.replace(
+    # The same frames with the plain gather, CC and stats: identical
+    # detections (SGM and correlation keep their kernels, so disparity and
+    # flow are the same in both runs).
+    plain_scene = config.replace(
+        scene_flow=dataclasses.replace(config.scene_flow,
+                                       gather_backend="xla"),
+        clusterer=dataclasses.replace(config.clusterer, cc_backend="xla"))
+    reset_counts()
+    scene_outs, scene_ms = run_frames(model, plain_scene, stereo, frames, dev)
+    counts = read_counts()
+    for name in ("gather", "cc", "cluster_stats", "sceneflow_fused"):
+        if counts[name] != 0:
+            raise AssertionError(f"the plain scene run launched {name}")
+    same_flow = all(torch.equal(a.flow, b.flow)
+                    for a, b in zip(outs, scene_outs))
+    log(f"flow bit-identical between the two runs: {same_flow}")
+    compare_detections(outs, scene_outs, "kernel vs plain gather/CC/stats",
+                       atol=0.0)
+    log(f"plain gather/CC/stats: detections, label images and overflow "
+        f"identical on {len(frames)} frames; median "
+        f"{statistics.median(scene_ms[1:]):.2f} ms/frame")
+
+    # Every kernel in its plain form, 6 frames (the plain SGM is slow).
+    plain = plain_scene.replace(
         sgm=dataclasses.replace(config.sgm, backend="xla"),
         flownet=dataclasses.replace(fcfg, corr_backend="xla"))
-    before = {k: v for c in counters for k, v in c.items()}
-    plain_outs, plain_ms = run_frames(model, plain, stereo, frames, dev)
-    after = {k: v for c in counters for k, v in c.items()}
-    if after != before:
-        raise AssertionError(f"the plain path launched kernels: {before} -> "
-                             f"{after}")
+    n_plain = len(frames[:6])
+    reset_counts()
+    plain_outs, plain_ms = run_frames(model, plain, stereo, frames[:n_plain],
+                                      dev)
+    if any(read_counts().values()):
+        raise AssertionError(f"the plain path launched kernels: "
+                             f"{read_counts()}")
     flow_err = []
     for a, b in zip(outs, plain_outs):
         if not torch.equal(a.disparity.disparity, b.disparity.disparity):
@@ -373,24 +854,68 @@ def main() -> int:
         flow_err.append((a.flow - b.flow).abs())
     mean_err = max(float(e.mean()) for e in flow_err)
     max_err = max(float(e.max()) for e in flow_err)
-    log(f"plain path: disparity identical; flow mean |diff| {mean_err:.3g} "
-        f"px (tolerance {TOL_FLOW_MEAN}), max {max_err:.3g} px; plain "
+    plain_dets = [int(o.detections.valid.sum()) for o in plain_outs]
+    log(f"plain path ({n_plain} frames): disparity identical; flow mean "
+        f"|diff| {mean_err:.3g} px (tolerance {TOL_FLOW_MEAN}), max "
+        f"{max_err:.3g} px; detections per frame {plain_dets}; plain "
         f"median {statistics.median(plain_ms[1:]):.2f} ms/frame")
     if not mean_err <= TOL_FLOW_MEAN:
         raise AssertionError(f"flow kernel vs plain mean diff {mean_err}")
+    if plain_dets != dets[:n_plain]:
+        raise AssertionError(f"plain path detections {plain_dets} != "
+                             f"{dets[:n_plain]}")
 
-    profile_frames(model, config, stereo, frames[:3], dev, med)
+    # Two moving patches too far apart for one crop window.
+    frames2 = make_frames(4, second_patch=True)
+    reset_counts()
+    cc_per_frame2 = []
+    outs2, _ = run_frames(model, config, stereo, frames2, dev,
+                          cc_per_frame=cc_per_frame2)
+    counts = read_counts()
+    dets2 = [int(o.detections.valid.sum()) for o in outs2]
+    log(f"two-window frames: launches {json.dumps(counts)}; cc launches "
+        f"per frame {cc_per_frame2}; detections per frame {dets2}")
+    for o in outs2[1:]:  # the first frame has no previous one
+        xs = o.detections.center[o.detections.valid][:, 0]
+        if not (bool((xs < 0).any()) and bool((xs > 0).any())):
+            raise AssertionError("two-window frames: both patches were not "
+                                 f"detected ({dets2})")
+    if not (cc_per_frame2[1:] == [2] * (len(frames2) - 1)
+            and counts["cluster_stats"] == counts["cc"]):
+        raise AssertionError(
+            f"two-window frames: cc launches per frame {cc_per_frame2}, "
+            f"cluster_stats {counts['cluster_stats']}: expected two windows "
+            "a frame after the first")
+    scene2, _ = run_frames(model, plain_scene, stereo, frames2, dev)
+    compare_detections(outs2, scene2, "two-window kernel vs plain", atol=0.0)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
-    log(smi)
-    print(json.dumps({"kernels": list(report.values())}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    # The fused construct in place of the composite scene flow.
+    fused = config.replace(scene_flow=dataclasses.replace(
+        config.scene_flow, gather_backend="fused"))
+    n_fused = len(frames[:6])
+    reset_counts()
+    fused_outs, fused_ms = run_frames(model, fused, stereo, frames[:n_fused],
+                                      dev)
+    counts = read_counts()
+    log("launches on the fused path: " + json.dumps(counts))
+    if counts["sceneflow_fused"] != n_fused or counts["gather"] != 0:
+        raise AssertionError(
+            f"fused path: sceneflow_fused {counts['sceneflow_fused']} "
+            f"launches (expected {n_fused}), gather {counts['gather']} "
+            "(expected 0)")
+    report["sceneflow_fused"]["launches"] = counts["sceneflow_fused"]
+    check_outputs(fused_outs, frames[:n_fused], lambda o: o.capacity)
+    compare_detections(outs[:n_fused], fused_outs, "default vs fused path",
+                       atol=1e-4)
+    log(f"fused path: detections, label images and overflow equal to the "
+        f"default path on {n_fused} frames (velocities within 1e-4); median "
+        f"{statistics.median(fused_ms[1:]):.2f} ms/frame")
+
+    profile_frames(model, config, stereo, frames[:3], dev, med,
+                   "the serving backends")
+    profile_frames(model, plain_scene, stereo, frames[:3], dev,
+                   statistics.median(scene_ms[1:]),
+                   "the plain gather, CC and stats")
 
 
 if __name__ == "__main__":

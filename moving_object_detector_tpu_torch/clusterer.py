@@ -5,8 +5,14 @@ descending-norm median velocity, with a fixed object capacity.
 The JAX ``lax.cond`` branches (quiet frame, one crop window, two windows
 split at the widest static column gap, full frame) become Python ``if``s
 on flags fetched from the device. Clusters are ordered by the raster
-index of their first member pixel. Cluster statistics use the XLA form
-(``cc_backend="xla"``): ``cap`` masked reductions.
+index of their first member pixel.
+
+``ClustererConfig.cc_backend`` picks the connected components and the
+cluster statistics: ``"pallas"`` the CUDA kernels (``ops/clustering_cuda.py``,
+a union-find with no host loop, and ``ops/cluster_stats_cuda.py``, one pass
+over the pixels), ``"xla"`` the plain fixpoint and ``cap`` masked
+reductions, ``"auto"`` the kernels for CUDA tensors and the plain forms for
+CPU tensors. Both give the same labels and statistics.
 """
 
 from __future__ import annotations
@@ -14,6 +20,8 @@ from __future__ import annotations
 import torch
 
 from .config import ClustererConfig
+from .ops import cluster_stats_cuda, clustering_cuda, resolve_backend
+from .ops.cluster_stats import cluster_stats
 from .ops.clustering import connected_components
 from .types import MovingObjects, SceneFlowCloud
 
@@ -178,10 +186,13 @@ def _cluster_dynamic(cloud, vel, vnorm, dynamic, *, config, dynamic_speed,
     cap = config.max_objects
     if min_size_cap is None:
         min_size_cap = n
-    labels = connected_components(
-        dynamic, cloud.points[..., 2], depth_diff,
-        neighbor_distance=neighbor_distance, max_iters=config.max_cc_iters,
-        stencil_radius=config.neighbor_distance)
+    kernels = resolve_backend(config.cc_backend, dev) == "pallas"
+    cc = clustering_cuda.connected_components if kernels \
+        else connected_components
+    labels = cc(dynamic, cloud.points[..., 2], depth_diff,
+                neighbor_distance=neighbor_distance,
+                max_iters=config.max_cc_iters,
+                stencil_radius=config.neighbor_distance)
     flat_labels = labels.reshape(-1)
 
     min_size = torch.clamp(cluster_size, 2, min_size_cap).to(torch.int64)
@@ -214,22 +225,10 @@ def _cluster_dynamic(cloud, vel, vnorm, dynamic, *, config, dynamic_speed,
                         torch.full_like(rpos, n))
     root_valid = roots < n
 
-    # Compact id per pixel and AABB / size per cluster: cap masked passes.
-    cid = torch.full((n,), cap, dtype=torch.int32, device=dev)
-    for c in range(cap):
-        cid = torch.where(root_valid[c] & (flat_labels == roots[c]),
-                          torch.tensor(c, dtype=torch.int32, device=dev), cid)
-    pts = cloud.points.reshape(n, 3)
-    mins, maxs, csize = [], [], []
-    inf = float("inf")
-    for c in range(cap):
-        in_c = (cid == c)[:, None]
-        mins.append(torch.where(in_c, pts, inf).amin(dim=0))
-        maxs.append(torch.where(in_c, pts, -inf).amax(dim=0))
-        csize.append(in_c.sum(dtype=torch.int32))
-    mins = torch.stack(mins)
-    maxs = torch.stack(maxs)
-    csize = torch.stack(csize)
+    # Compact id per pixel and AABB / size per cluster.
+    stats = cluster_stats_cuda.cluster_stats if kernels else cluster_stats
+    cid_img, mins, maxs, csize = stats(labels, cloud.points, roots)
+    cid = cid_img.reshape(-1)
 
     # Median velocity: the member ranked size//2 by descending norm.
     mpos = torch.clamp(rpos + csize // 2, 0, n - 1).long()

@@ -70,25 +70,25 @@ class SceneFlowConfig:
     dynamic_disparity_rate: float = 0.0
     max_color_velocity: float = 1.0  # visualization-only (cfg:9)
     # Backend for the flow-matched previous-disparity lookup (the hot
-    # 467k-index gather): "pallas" = windowed tile kernel
-    # (ops/gather_pallas.py, 24x the XLA gather on v5e, exact within the
-    # window), "xla" = plain gather (unbounded match distance), "fused" =
-    # the ENTIRE scene-flow construct as one Pallas pass
-    # (ops/sceneflow_pallas.py; window semantics as "pallas"), "auto" =
-    # pallas on accelerators. With the windowed backends, matches farther
-    # than the radii below are treated as invalid (no velocity at that
-    # pixel) — the same degradation the reference applies to out-of-image
-    # matches. "pallas_interpret"/"fused_interpret" run the kernels in
-    # interpreter mode (CPU tests).
+    # 467k-index gather): "pallas" = the windowed CUDA kernel
+    # (ops/gather_cuda.py; the name is the reference package's word for
+    # the kernel form), "xla" = plain gather (unbounded match distance),
+    # "fused" = the ENTIRE scene-flow construct as one CUDA kernel
+    # (ops/sceneflow_cuda.py; window semantics as "pallas"), "auto" =
+    # "pallas" for CUDA tensors and "xla" for CPU tensors. With the
+    # windowed backends, matches outside the covered window of the radii
+    # below are treated as invalid (no velocity at that pixel), the same
+    # degradation the reference applies to out-of-image matches. A kernel
+    # wrapper given CPU tensors runs its plain version, so every value
+    # works on the CPU too. The reference package's "pallas_interpret" /
+    # "fused_interpret" (its kernels in interpreter mode) have no meaning
+    # here and raise ValueError.
     gather_backend: str = "auto"
     match_v_radius: int = 16  # max |vertical flow| px matched by the kernel
     match_h_radius: int = 128  # max |horizontal flow| px matched
 
     def __post_init__(self):
-        if self.gather_backend.startswith(("pallas", "fused")):
-            _unported("SceneFlowConfig.gather_backend", self.gather_backend,
-                      "Queue 2, kernels 5 and 8")
-        if self.gather_backend not in ("auto", "xla"):
+        if self.gather_backend not in ("auto", "xla", "pallas", "fused"):
             raise ValueError(f"unknown gather_backend {self.gather_backend!r}")
 
 
@@ -112,21 +112,17 @@ class ClustererConfig:
     max_objects: int = 16
     # Upper bound on label-propagation sweeps for connected components.
     max_cc_iters: int = 64
-    # Pallas CC: cap on the per-iteration distance-doubling scan reach in
-    # pixels (0 = full image span). Components wider than the cap still
-    # label correctly via extra fixpoint iterations (the kernel loops to
-    # convergence); a cap near the largest expected object size cuts
-    # per-iteration rolls. Quality-neutral by construction. Default from
-    # the on-chip A/B at KITTI res (profile_clusterer.py, 2026-08-19):
-    # span 128 = 1.355 ms vs 1.499 uncapped / 1.80 at span 64, same
-    # 3-iteration fixpoint on the busy 3-object frame; objects wider
-    # than 128 px converge via extra ~0.45 ms iterations, bounded by
-    # max_cc_iters.
+    # The reference package's Pallas CC kernel caps its per-iteration
+    # scan reach at this many pixels (0 = full image span). The port's CUDA
+    # connected components are a union-find with no scans, so the field is
+    # kept for configuration parity and read by nothing.
     cc_scan_span: int = 128
-    # Connected-components backend: "pallas" = whole-image-in-VMEM kernel
-    # (ops/clustering_pallas.py; hardware-validated exact vs the XLA
-    # oracle, 5.3x faster on busy frames), "xla" = scan/sweep form,
-    # "auto" = pallas on accelerators.
+    # Connected-components and cluster-stats backend: "pallas" = the CUDA
+    # kernels (ops/clustering_cuda.py, ops/cluster_stats_cuda.py; the name
+    # is the reference package's word for the kernel form), "xla" = the
+    # plain scan/sweep fixpoint and masked passes, "auto" = "pallas" for
+    # CUDA tensors and "xla" for CPU tensors. "pallas_interpret" has no
+    # meaning here and raises ValueError.
     cc_backend: str = "auto"
     # Dynamic-extent crop fast path (0 = off): when every dynamic pixel
     # fits in a (cc_crop_h, cc_crop_w) window, the WHOLE busy clustering
@@ -139,11 +135,11 @@ class ClustererConfig:
     # the full-frame path via lax.cond. This scales busy-frame cost with
     # CONTENT extent, like the reference's per-cluster loops
     # (clusterer_nodelet.cpp:56-83) whose work scales with dynamic-pixel
-    # count. Measured (BENCH_MATRIX round 3, KITTI busy bench): 162.8
-    # pairs/s full-frame -> 243.9 at 192x512 -> 259.4 at 128x384. The
-    # default 192x512 favors fallback robustness (close/tall objects)
-    # over the last 6%; the fast path auto-disables when the window
-    # would not shrink the frame (e.g. the 192x448 validation scenes).
+    # count. The default 192x512 favors fallback robustness (close/tall
+    # objects) over a smaller, faster window (the reference package chose
+    # it from its TPU benchmarks, BENCH_MATRIX round 3); the fast path
+    # auto-disables when the window would not shrink the frame (e.g. the
+    # 192x448 validation scenes).
     cc_crop_h: int = 192
     cc_crop_w: int = 512
     # Max crop windows when the dynamic extent defeats a single
@@ -151,16 +147,11 @@ class ClustererConfig:
     # widest all-static column gap (exact when the gap exceeds the
     # neighbor radius — no CC edge can cross it; clusterer._busy_branch),
     # falling back to the full-frame path when no such split exists.
-    # 1 = single-window behavior only. Measured (BENCH_MATRIX round 4b):
-    # the --busy-wide two-corner scene pays full-frame cost (136.97
-    # pairs/s) without this, ~2x the one-crop stage cost with it.
+    # 1 = single-window behavior only.
     cc_crop_windows: int = 2
 
     def __post_init__(self):
-        if self.cc_backend.startswith("pallas"):
-            _unported("ClustererConfig.cc_backend", self.cc_backend,
-                      "Queue 2, kernels 6 and 7")
-        if self.cc_backend not in ("auto", "xla"):
+        if self.cc_backend not in ("auto", "xla", "pallas"):
             raise ValueError(f"unknown cc_backend {self.cc_backend!r}")
 
 

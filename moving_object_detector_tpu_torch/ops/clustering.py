@@ -58,8 +58,12 @@ def _seg_min_scan(label, barrier, dim: int, reverse: bool):
 
 
 def connected_components(dynamic, depth, depth_diff, neighbor_distance=4,
-                         max_iters: int = 64, stencil_radius=None):
-    """(H, W) int32 labels of the dynamic-pixel graph (see module doc).
+                         max_iters: int = 64, stencil_radius=None,
+                         return_iters: bool = False):
+    """(H, W) int32 labels of the dynamic-pixel graph (see module doc);
+    with ``return_iters`` also the number of rounds the fixpoint ran. This
+    is the plain version of the CUDA kernels in ``csrc/cc.cu``
+    (``clustering_cuda.connected_components``).
 
     ``neighbor_distance`` may be a 0-d tensor up to ``stencil_radius``.
     The fixed-point loop is a Python loop bounded by ``max_iters``; its
@@ -119,10 +123,12 @@ def connected_components(dynamic, depth, depth_diff, neighbor_distance=4,
         lab = _seg_min_scan(lab, bar_d, 0, True)
         return torch.where(dynamic, lab, sentinel)
 
+    iters = 0
     for _ in range(max_iters):
         new = propagate(sweep(label))
         changed = bool((new != label).any())
         label = new
+        iters += 1
         if not changed:
             break
-    return label
+    return (label, iters) if return_iters else label

@@ -124,3 +124,36 @@ def gather_pixels(image: torch.Tensor, u_idx: torch.Tensor,
     uc = u_idx.clamp(0, w - 1).long()
     vc = v_idx.clamp(0, h - 1).long()
     return image[vc, uc], in_bounds
+
+
+def window_spans(v_radius: int, h_radius: int):
+    """Row-group and column-tile reach of the windowed gather: the radii
+    rounded up to whole groups of 8 rows and tiles of 128 columns."""
+    return -(-int(v_radius) // 8), -(-int(h_radius) // 128)
+
+
+def window_gather(src: torch.Tensor, v_idx: torch.Tensor,
+                  u_idx: torch.Tensor, v_radius: int = 16,
+                  h_radius: int = 128) -> torch.Tensor:
+    """out[i, j] = src[v_idx[i, j], u_idx[i, j]] where the source pixel is
+    inside the image and inside the covered window of (i, j); NaN
+    otherwise. A NaN in ``src`` comes back as NaN.
+
+    The covered window is the one the reference kernel scans: the source's
+    8-row group within ceil(v_radius / 8) groups of the output pixel's, and
+    its 128-column tile within ceil(h_radius / 128) tiles. It contains
+    every source within (+-v_radius, +-h_radius) and reaches up to 7 rows
+    and 127 columns farther, depending on where (i, j) sits in its tile.
+    This is the plain version of the CUDA kernel in ``csrc/gather.cu``."""
+    h, w = src.shape
+    dev = src.device
+    rg, rt = window_spans(v_radius, h_radius)
+    ii = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
+    jj = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
+    inside = (v_idx >= 0) & (v_idx < h) & (u_idx >= 0) & (u_idx < w)
+    vc = v_idx.clamp(0, h - 1)
+    uc = u_idx.clamp(0, w - 1)
+    hit = (inside & (((vc >> 3) - (ii >> 3)).abs() <= rg)
+           & (((uc >> 7) - (jj >> 7)).abs() <= rt))
+    picked = src[vc.long(), uc.long()]
+    return torch.where(hit, picked, torch.full_like(picked, float("nan")))

@@ -23,7 +23,7 @@ from . import resolve_device
 from .clusterer import cluster_scene_flow
 from .config import PipelineConfig
 from .egomotion import estimate_motion
-from .ops import geometry
+from .ops import geometry, resolve_backend
 from .ops.resize import resize_image
 from .ops.sgm import compute_disparity, disparity_with_metadata, \
     sgm_disparity_raw
@@ -295,9 +295,14 @@ def detect_step(flow_model, state: PipelineState, left, right, t,
     motion = torch.where(ego_ok, motion, eye)
 
     with _stage(stage_ms, "scene_flow", dev):
-        points_now = geometry.disparity_to_points(disparity_now, cam)
-        points_prev = geometry.disparity_to_points(disparity_prev, cam)
-        points_prev_tf = geometry.transform_points(motion, points_prev)
+        # The fused construct derives both clouds from the disparities.
+        fused = resolve_backend(config.scene_flow.gather_backend,
+                                dev) == "fused"
+        points_now = points_prev_tf = None
+        if not fused:
+            points_now = geometry.disparity_to_points(disparity_now, cam)
+            points_prev = geometry.disparity_to_points(disparity_prev, cam)
+            points_prev_tf = geometry.transform_points(motion, points_prev)
         dt = torch.clamp(t - state.prev_time, min=1e-3)
         cloud, static_flow = construct_scene_flow(
             points_now, points_prev_tf, flow, disparity_now, disparity_prev,

@@ -1,7 +1,14 @@
-"""Scene-flow construction (the JAX package's ``sceneflow.py``) with the
-plain-gather semantics of ``gather_backend="xla"``: the flow-matched
-previous pixel may lie any distance away, and a match outside the image
-is invalid.
+"""Scene-flow construction (the JAX package's ``sceneflow.py``).
+
+``SceneFlowConfig.gather_backend`` picks how the previous disparity is
+looked up at the flow-matched pixel. ``"xla"``: a plain gather; the match
+may lie any distance away, and a match outside the image is invalid.
+``"pallas"``: the windowed gather (``ops/gather_cuda.py``); a match outside
+the image or outside the covered window of ``match_v_radius`` x
+``match_h_radius`` is invalid. ``"fused"``: the whole construct in one
+kernel (``ops/sceneflow_cuda.py``) with the windowed semantics. ``"auto"``
+is the windowed gather for CUDA tensors and the plain gather for CPU
+tensors.
 
 NaN marks invalid throughout. A pixel gets a velocity only if its whole
 match chain validates; the velocity is (P_now - T P_prev) / dt where the
@@ -13,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from .ops import geometry
+from .ops import gather_cuda, geometry, resolve_backend, sceneflow_cuda
 from .types import CameraModel, DisparityImage, SceneFlowCloud
 
 
@@ -39,11 +46,25 @@ def construct_scene_flow(points_now, points_prev_transformed, flow,
                          cam: CameraModel, dt, dynamic_flow_diff,
                          transform_prev2now=None, config=None,
                          dynamic_disparity_rate=0.0):
-    """Per-pixel velocity cloud: (SceneFlowCloud, static_flow)."""
-    h, w = points_now.shape[:2]
-    dev = points_now.device
+    """Per-pixel velocity cloud: (SceneFlowCloud, static_flow). With the
+    fused backend ``points_now`` and ``points_prev_transformed`` are not
+    read (the kernel derives both from the disparities) and may be None."""
+    dev = flow.device
     if transform_prev2now is None:
         transform_prev2now = torch.eye(4, dtype=torch.float32, device=dev)
+    backend = resolve_backend(
+        getattr(config, "gather_backend", "xla") if config else "xla", dev)
+    if backend == "fused":
+        params = sceneflow_cuda.pack_params(
+            cam, disparity_now, disparity_previous, transform_prev2now, dt,
+            dynamic_flow_diff, dynamic_disparity_rate)
+        points, velocity, static_flow = sceneflow_cuda.scene_flow_fused_cuda(
+            disparity_now.disparity, disparity_previous.disparity, flow,
+            params, v_radius=config.match_v_radius,
+            h_radius=config.match_h_radius)
+        return SceneFlowCloud(points=points, velocity=velocity), static_flow
+
+    h, w = points_now.shape[:2]
     u, v = geometry.pixel_grid(h, w, dev)
     static_flow = static_optical_flow(points_prev_transformed, cam)
     valid_now = torch.isfinite(points_now[..., 0])
@@ -57,8 +78,16 @@ def construct_scene_flow(points_now, points_prev_transformed, flow,
 
     d_now = disparity_now.disparity
     right_now_ok = disparity_now.valid_mask() & (d_now >= 0.0)
-    d_prev, prev_in_bounds = geometry.gather_pixels(
-        disparity_previous.disparity, up, vp)
+    if backend == "pallas":
+        # NaN marks every miss (outside the image or the window), which
+        # the isfinite gate below covers: no separate bounds mask.
+        d_prev = gather_cuda.window_gather(
+            disparity_previous.disparity, vp, up,
+            v_radius=config.match_v_radius, h_radius=config.match_h_radius)
+        prev_in_bounds = True
+    else:
+        d_prev, prev_in_bounds = geometry.gather_pixels(
+            disparity_previous.disparity, up, vp)
     right_prev_ok = (prev_in_bounds & torch.isfinite(d_prev)
                      & (d_prev >= disparity_previous.min_disparity)
                      & (d_prev <= disparity_previous.max_disparity)

@@ -17,7 +17,9 @@ PORT = os.path.join(ROOT, "moving_object_detector_tpu_torch")
 FORBIDDEN = re.compile(r"\b(jax|flax|orbax)\b|moving_object_detector_tpu(?!_)")
 MODULES = ("config", "types", "tunables", "_build", "ops.geometry",
            "ops.resize", "ops.sgm", "ops.sgm_cuda", "ops.flow_ops",
-           "ops.flow_corr_cuda", "ops.clustering", "models.pwc_net",
+           "ops.flow_corr_cuda", "ops.clustering", "ops.clustering_cuda",
+           "ops.cluster_stats", "ops.cluster_stats_cuda", "ops.gather_cuda",
+           "ops.sceneflow_cuda", "models.pwc_net",
            "utils.checkpoint", "egomotion", "sceneflow", "clusterer",
            "tracker", "pipeline")
 
@@ -84,16 +86,33 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("make", [
-    lambda: tcfg.SceneFlowConfig(gather_backend="pallas"),
-    lambda: tcfg.SceneFlowConfig(gather_backend="fused"),
-    lambda: tcfg.ClustererConfig(cc_backend="pallas"),
     lambda: tcfg.SGMConfig(backend="pallas_v1"),
     lambda: tcfg.TrackerConfig(association="gnn"),
-], ids=["gather_pallas", "gather_fused", "cc_pallas", "sgm_pallas_v1",
-        "association_gnn"])
+], ids=["sgm_pallas_v1", "association_gnn"])
 def test_config_raises_for_unported_values(make):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         make()
+
+
+@pytest.mark.parametrize("cls,field,value", [
+    (tcfg.SceneFlowConfig, "gather_backend", "pallas"),
+    (tcfg.SceneFlowConfig, "gather_backend", "fused"),
+    (tcfg.ClustererConfig, "cc_backend", "pallas"),
+], ids=["gather_pallas", "gather_fused", "cc_pallas"])
+def test_config_constructs_the_kernel_backends(cls, field, value):
+    assert getattr(cls(**{field: value}), field) == value
+
+
+@pytest.mark.parametrize("cls,field,value", [
+    (tcfg.SceneFlowConfig, "gather_backend", "pallas_interpret"),
+    (tcfg.SceneFlowConfig, "gather_backend", "fused_interpret"),
+    (tcfg.ClustererConfig, "cc_backend", "pallas_interpret"),
+], ids=["gather_pallas_interpret", "gather_fused_interpret",
+        "cc_pallas_interpret"])
+def test_config_refuses_the_interpret_names(cls, field, value):
+    """Interpreter mode belongs to the reference package's kernels."""
+    with pytest.raises(ValueError, match="unknown"):
+        cls(**{field: value})
 
 
 def test_config_defaults_match_the_jax_package():
@@ -105,11 +124,39 @@ def test_config_defaults_match_the_jax_package():
 def test_cpu_tensors_take_the_plain_versions():
     """Kernel wrappers on CPU tensors run their plain versions and count
     no launch."""
-    from moving_object_detector_tpu_torch.ops import flow_corr_cuda, sgm_cuda
+    from moving_object_detector_tpu_torch.ops import (
+        cluster_stats_cuda,
+        clustering_cuda,
+        flow_corr_cuda,
+        gather_cuda,
+        sceneflow_cuda,
+        sgm_cuda,
+    )
 
-    before = (dict(sgm_cuda.LAUNCHES), dict(flow_corr_cuda.LAUNCHES))
+    counters = (sgm_cuda.LAUNCHES, flow_corr_cuda.LAUNCHES,
+                gather_cuda.LAUNCHES, clustering_cuda.LAUNCHES,
+                cluster_stats_cuda.LAUNCHES, sceneflow_cuda.LAUNCHES)
+    before = [dict(c) for c in counters]
     cl = torch.randint(0, 1 << 24, (6, 40), dtype=torch.int32)
     sgm_cuda.vertical_deltas(cl, cl, 10, 120)
     flow_corr_cuda.correlation(torch.randn(1, 3, 5, 7),
                                torch.randn(1, 3, 5, 7), 2)
-    assert (sgm_cuda.LAUNCHES, flow_corr_cuda.LAUNCHES) == before
+    h, w = 6, 9
+    src = torch.rand(h, w)
+    idx = torch.zeros((h, w), dtype=torch.int32)
+    assert torch.equal(gather_cuda.window_gather(src, idx, idx),
+                       src[0, 0].expand(h, w))
+    dyn = torch.ones((h, w), dtype=torch.bool)
+    labels = clustering_cuda.connected_components(
+        dyn, torch.ones(h, w), 0.1, neighbor_distance=1)
+    assert torch.equal(labels, torch.zeros((h, w), dtype=torch.int32))
+    roots = torch.tensor([0, h * w], dtype=torch.int32)
+    cid, mins, maxs, csize = cluster_stats_cuda.cluster_stats(
+        labels, torch.rand(h, w, 3), roots)
+    assert csize.tolist() == [h * w, 0] and int(cid.max()) == 0
+    params = torch.ones(sceneflow_cuda.NPAR)
+    points, vel, static = sceneflow_cuda.scene_flow_fused_cuda(
+        src, src, torch.zeros(h, w, 2), params)
+    assert points.shape == vel.shape == (h, w, 3)
+    assert static.shape == (h, w, 2)
+    assert [dict(c) for c in counters] == before

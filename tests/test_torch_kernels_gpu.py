@@ -12,8 +12,15 @@ import pytest
 import torch
 
 from moving_object_detector_tpu_torch.ops import (
+    cluster_stats,
+    cluster_stats_cuda,
+    clustering,
+    clustering_cuda,
     flow_corr_cuda,
     flow_ops,
+    gather_cuda,
+    geometry,
+    sceneflow_cuda,
     sgm,
     sgm_cuda,
 )
@@ -59,6 +66,142 @@ def test_correlation_kernel_matches_plain(cuda, c, h, w, r):
     assert (out - ref).abs().max().item() <= 1e-5
 
 
+def _equal_with_nans(a, b):
+    return (torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+
+
+@pytest.mark.parametrize("h,w,vr,hr", [(376, 1242, 16, 128),
+                                       (125, 350, 5, 130), (37, 171, 0, 0)])
+def test_gather_kernel_equals_plain(cuda, h, w, vr, hr):
+    rng = np.random.default_rng(h)
+    src = rng.uniform(1, 100, (h, w)).astype(np.float32)
+    src[rng.random((h, w)) < 0.05] = np.nan
+    ii, jj = np.mgrid[0:h, 0:w]
+    vp = ii + rng.integers(-(vr + 12), vr + 13, (h, w))
+    up = jj + rng.integers(-(hr + 200), hr + 201, (h, w))
+    far = rng.random((h, w)) < 0.05
+    vp[far] = rng.integers(-3 * h, 4 * h, far.sum())
+    up[far] = rng.integers(-3 * w, 4 * w, far.sum())
+    args = [torch.from_numpy(x).to(cuda) for x in
+            (src, vp.astype(np.int32), up.astype(np.int32))]
+    out = gather_cuda.window_gather(*args, v_radius=vr, h_radius=hr)
+    ref = geometry.window_gather(*args, v_radius=vr, h_radius=hr)
+    assert _equal_with_nans(out, ref)
+    assert bool(torch.isfinite(out).any()) and bool(torch.isnan(out).any())
+
+
+def _cc_case(name, h, w):
+    rng = np.random.default_rng(len(name) + h)
+    depth = (np.round(rng.random((h, w)) * 3) + 2.0).astype(np.float32)
+    if name == "random":
+        dyn = rng.random((h, w)) < 0.3
+    elif name == "dense":
+        dyn = rng.random((h, w)) < 0.5
+    elif name == "one_component":
+        dyn = np.ones((h, w), bool)
+        depth[:] = 5.0
+    elif name == "serpentine":
+        dyn = np.zeros((h, w), bool)
+        dyn[::6, :] = True
+        for k, r in enumerate(range(0, h - 6, 6)):
+            dyn[r:r + 6, w - 1 if k % 2 == 0 else 0] = True
+        depth[:] = 5.0
+    elif name == "empty":
+        dyn = np.zeros((h, w), bool)
+    return dyn, depth
+
+
+@pytest.mark.parametrize("name", ["random", "dense", "one_component",
+                                  "serpentine", "empty"])
+@pytest.mark.parametrize("h,w", [(192, 512), (125, 350)])
+def test_cc_kernel_equals_converged_plain(cuda, name, h, w):
+    """Exact labels, three runs (a racy union would differ between runs).
+    The plain fixpoint gets rounds enough to converge; the kernel ignores
+    ``max_iters``."""
+    dyn, depth = _cc_case(name, h, w)
+    dyn_t = torch.from_numpy(dyn).to(cuda)
+    z_t = torch.from_numpy(depth).to(cuda)
+    for radius in (torch.tensor(4), torch.tensor(2)):
+        ref, iters = clustering.connected_components(
+            dyn_t, z_t, 0.15, neighbor_distance=radius.to(cuda),
+            max_iters=4096, stencil_radius=4, return_iters=True)
+        assert iters < 4096
+        for _ in range(3):
+            out = clustering_cuda.connected_components(
+                dyn_t, z_t, 0.15, neighbor_distance=radius.to(cuda),
+                max_iters=1, stencil_radius=4)
+            assert torch.equal(out, ref), (name, int(radius))
+
+
+def test_cc_kernel_reads_strided_views(cuda):
+    """A crop of the frame's dynamic map and of the z plane of an
+    (H, W, 3) cloud, as the clusterer passes them."""
+    dyn, depth = _cc_case("random", 200, 600)
+    pts = torch.zeros(200, 600, 3, device=cuda)
+    pts[..., 2] = torch.from_numpy(depth).to(cuda)
+    dyn_t = torch.from_numpy(dyn).to(cuda)
+    sl = (slice(3, 195), slice(40, 552))
+    out = clustering_cuda.connected_components(
+        dyn_t[sl], pts[sl][..., 2], 0.15, neighbor_distance=4)
+    ref = clustering.connected_components(
+        dyn_t[sl].contiguous(), pts[sl][..., 2].contiguous(), 0.15,
+        neighbor_distance=4, max_iters=4096)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("h,w,cap", [(192, 512, 16), (125, 350, 32),
+                                     (37, 171, 1)])
+def test_cluster_stats_kernel_equals_plain(cuda, h, w, cap):
+    dyn, depth = _cc_case("random", h, w)
+    dyn_t = torch.from_numpy(dyn).to(cuda)
+    labels = clustering_cuda.connected_components(
+        dyn_t, torch.from_numpy(depth).to(cuda), 0.15, neighbor_distance=4)
+    n = h * w
+    found = torch.unique(labels[labels < n])
+    roots = torch.full((cap,), n, dtype=torch.int32, device=cuda)
+    k = min(cap - cap // 4, found.numel())
+    roots[:k] = found[:k].to(torch.int32)  # the last slots stay unused
+    frame = torch.randn(h + 4, w + 6, 3, device=cuda)
+    points = frame[2:h + 2, 3:w + 3]  # a strided view, read in place
+    member = torch.isin(labels, roots[:k])
+    points[~member] = float("nan")
+    out = cluster_stats_cuda.cluster_stats(labels, points, roots)
+    ref = cluster_stats.cluster_stats(labels, points, roots)
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[3], ref[3])
+    # Values, not bits: a zero may carry either sign.
+    assert bool((out[1] == ref[1]).all()) and bool((out[2] == ref[2]).all())
+    assert int(out[3].sum()) > 0
+
+
+@pytest.mark.parametrize("h,w", [(376, 1242), (125, 350)])
+def test_fused_scene_flow_kernel_matches_plain(cuda, h, w):
+    """NaN masks exact, values within 1e-5 relative (1e-5 of the frame's
+    extent for the static flow, a difference of pixel coordinates)."""
+    rng = np.random.default_rng(w)
+    d_now = rng.uniform(1, 100, (h, w)).astype(np.float32)
+    d_prev = rng.uniform(1, 100, (h, w)).astype(np.float32)
+    d_now[rng.random((h, w)) < 0.1] = -1.0
+    d_prev[rng.random((h, w)) < 0.1] = np.nan
+    d_prev[5:9] = 0.0
+    flow = rng.normal(0, 8, (h, w, 2)).astype(np.float32)
+    flow[rng.random((h, w)) < 0.02] = 400.0
+    flow[rng.random((h, w)) < 0.02] = np.nan
+    params = torch.tensor(
+        [721.5, 720.0, w / 2 - 3, h / 2 + 2, 721.5, 0.54, 0.5, 127.0,
+         721.5, 0.54, 0.5, 127.0,
+         0.99999, -0.001, 0.004, 0.05, 0.001, 0.99999, -0.002, -0.02,
+         -0.004, 0.002, 0.99999, 0.3, 0.1, 5.0, 30.0], device=cuda)
+    args = [torch.from_numpy(x).to(cuda) for x in (d_now, d_prev, flow)]
+    out = sceneflow_cuda.scene_flow_fused_cuda(*args, params)
+    ref = sceneflow_cuda.scene_flow_fused(*args, params)
+    for a, b, scale in zip(out, ref, (1.0, 1.0, float(max(h, w)))):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        a, b = torch.nan_to_num(a), torch.nan_to_num(b)
+        assert bool(((a - b).abs() <= 1e-5 * (b.abs() + scale)).all())
+    assert bool(torch.isfinite(out[1]).any())
+
+
 def test_wrappers_count_launches(cuda):
     before = dict(sgm_cuda.LAUNCHES), dict(flow_corr_cuda.LAUNCHES)
     cl = torch.randint(0, 1 << 24, (8, 40), dtype=torch.int32, device=cuda)
@@ -68,3 +211,20 @@ def test_wrappers_count_launches(cuda):
     torch.cuda.synchronize()
     assert sgm_cuda.LAUNCHES["sgm_vertical"] == before[0]["sgm_vertical"] + 1
     assert flow_corr_cuda.LAUNCHES["corr"] == before[1]["corr"] + 1
+    counts = {**gather_cuda.LAUNCHES, **clustering_cuda.LAUNCHES,
+              **cluster_stats_cuda.LAUNCHES, **sceneflow_cuda.LAUNCHES}
+    src = torch.rand(6, 9, device=cuda)
+    idx = torch.zeros((6, 9), dtype=torch.int32, device=cuda)
+    gather_cuda.window_gather(src, idx, idx)
+    labels = clustering_cuda.connected_components(
+        src > 0.5, src, 0.1, neighbor_distance=1)
+    cluster_stats_cuda.cluster_stats(
+        labels, torch.rand(6, 9, 3, device=cuda),
+        torch.tensor([0, 54], dtype=torch.int32, device=cuda))
+    sceneflow_cuda.scene_flow_fused_cuda(
+        src, src, torch.zeros(6, 9, 2, device=cuda),
+        torch.ones(sceneflow_cuda.NPAR, device=cuda))
+    torch.cuda.synchronize()
+    after = {**gather_cuda.LAUNCHES, **clustering_cuda.LAUNCHES,
+             **cluster_stats_cuda.LAUNCHES, **sceneflow_cuda.LAUNCHES}
+    assert after == {k: v + 1 for k, v in counts.items()}

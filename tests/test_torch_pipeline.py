@@ -1,14 +1,19 @@
 """The PyTorch port's detect_step against the JAX package's, end to end.
 
 A tiny configuration (flow net (8, 16, 32) in f32 with the JAX random
-init carried across, SGM D=16 on its plain form, plain gather and CC)
-runs the same 4-frame moving-patch sequence through both packages, once
-with the flow net and once with a flow override.
+init carried across, SGM D=16 on its plain form) runs the same 4-frame
+moving-patch sequence through both packages, once with the flow net and
+once with a flow override, for each backend triple: the plain gather and
+CC ("xla"), the serving backends (windowed gather, CC and cluster-stats
+kernels: "pallas" in the port, whose wrappers run their plain versions
+on CPU tensors, against "pallas_interpret" in the JAX package), and the
+fused scene-flow construct ("fused" against "fused_interpret").
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from moving_object_detector_tpu import config as jcfg
@@ -40,14 +45,22 @@ BG_STRIPS = ((0, 32, 6), (32, 64, 3), (64, 96, 9), (96, 128, 12))
 D_OBJ = 12
 
 
-def _config(m):
+# name -> (JAX gather, JAX cc, port gather, port cc)
+BACKENDS = {
+    "xla": ("xla", "xla", "xla", "xla"),
+    "serving": ("pallas_interpret", "pallas_interpret", "pallas", "pallas"),
+    "fused": ("fused_interpret", "pallas_interpret", "fused", "pallas"),
+}
+
+
+def _config(m, gather_backend="xla", cc_backend="xla"):
     return m.PipelineConfig(
         height=H, width=W,
         scene_flow=m.SceneFlowConfig(dynamic_flow_diff=2.0,
-                                     gather_backend="xla"),
+                                     gather_backend=gather_backend),
         clusterer=m.ClustererConfig(
             cluster_size=100, depth_diff=0.3, dynamic_speed=0.3,
-            neighbor_distance=2, max_objects=4, cc_backend="xla"),
+            neighbor_distance=2, max_objects=4, cc_backend=cc_backend),
         tracker=m.TrackerConfig(max_tracks=8),
         sgm=m.SGMConfig(max_disparity=16, backend="xla"),
         egomotion=m.EgoMotionConfig(
@@ -59,7 +72,9 @@ def _config(m):
     )
 
 
-JCFG, TCFG = _config(jcfg), _config(tcfg)
+def _configs(backends: str):
+    jg, jc, tg, tc = BACKENDS[backends]
+    return _config(jcfg, jg, jc), _config(tcfg, tg, tc)
 
 
 def _smooth_noise(rng, h, w):
@@ -95,7 +110,8 @@ def _flat(params):
             np.asarray(leaf) for path, leaf in flat}
 
 
-def _run(use_net: bool):
+def _run(use_net: bool, backends: str = "xla"):
+    JCFG, TCFG = _configs(backends)
     jmodel = JPWCNet(config=JCFG.flownet)
     jparams = init_pwc_params(jmodel, H, W)
     tmodel = PWCNet(TCFG.flownet)
@@ -154,3 +170,14 @@ def test_detect_step_matches_jax_with_flow_net():
 def test_detect_step_matches_jax_with_flow_override():
     n_det = _check(_run(use_net=False), flow_atol=0.0)
     assert n_det >= 3  # the moving patch is detected from frame 1 on
+
+
+@pytest.mark.parametrize("backends", ["serving", "fused"])
+def test_detect_step_kernel_backends_match_jax_with_flow_net(backends):
+    _check(_run(use_net=True, backends=backends), flow_atol=1e-3)
+
+
+@pytest.mark.parametrize("backends", ["serving", "fused"])
+def test_detect_step_kernel_backends_match_jax_with_flow_override(backends):
+    n_det = _check(_run(use_net=False, backends=backends), flow_atol=0.0)
+    assert n_det >= 3
