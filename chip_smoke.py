@@ -4,9 +4,10 @@
 
 1. Builds the CUDA kernels from ``moving_object_detector_tpu_torch/csrc``
    (one nvcc per source, in parallel) and prints the build seconds.
-2. Holds each of the eight kernels against its plain PyTorch version on
+2. Holds each of the twelve kernels against its plain PyTorch version on
    the card, at the serving shapes and at an odd shape: the SGM deltas and
-   disparity bitwise, the correlation within 1e-5, the windowed gather
+   disparity bitwise (v2), the v1 census, cost volume, aggregated total
+   and disparity bitwise, the correlation within 1e-5, the windowed gather
    equal with NaN positions equal, the connected components exactly on six
    kinds of input (three runs each), the cluster stats exactly (min / max
    by value), the fused scene-flow construct with exact NaN masks and
@@ -33,7 +34,20 @@
 6. Profiles three serving frames with torch.profiler: device busy time
    per frame, kernel launches per frame, the kernels with the most device
    time.
-7. Prints the card's name and power limit, a ``{"kernels": [...]}`` line
+7. Runs the same 12 frames through ``io.runner.PipelineRunner`` (feeder
+   thread, frame ring, pinned upload, harvest a frame behind) with
+   ``sgm.backend="pallas_v1"``: each of the four v1 kernels must launch
+   every frame (the census twice), no v2 SGM kernel at all, every
+   disparity must equal the v2 path's bitwise and the detections the
+   default path's. Prints ms/frame through the runner beside the
+   hand-driven loop's, and the runner's report.
+8. Runs the CLI in process (``run.main``) on the same frames written to a
+   temporary ``.npz``: one JSON line per frame, the moving patch among the
+   detections, the export files present; then 6 frames with
+   ``--save-state`` and 6 more with ``--resume-state``, which must equal
+   the unbroken 12-frame run. Runs 6 frames with ``association="gnn"``
+   and compares the tracks with the greedy run's.
+9. Prints the card's name and power limit, a ``{"kernels": [...]}`` line
    and, last, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, before printing any result, without CUDA or without the
@@ -42,12 +56,15 @@ package beside it. Uses one card.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -62,6 +79,9 @@ PEAK_F32_OPS_PER_S = 67e12  # H100 SXM non-tensor-core f32 rate
 # 4 min, 2 add, 1 sub; share of the warp min and neighbour shuffles).
 OPS_PER_DP_UPDATE = 12
 OPS_PER_WTA_CANDIDATE = 8  # 4 adds, cost, pack, 2 min (left + right view)
+OPS_PER_CENSUS_NEIGHBOUR = 3  # bounds test, compare, or
+OPS_PER_COST = 3  # xor, popc, select
+FX, BASELINE = 721.5, 0.54
 
 H, W = 376, 1242
 N_FRAMES = 12
@@ -226,6 +246,86 @@ def check_sgm_kernels(dev, report):
         report[name] = dict(
             name=name, route="cuda",
             source="moving_object_detector_tpu_torch/csrc/sgm_v2.cu",
+            replaces=replaces, max_abs_err=0.0, **timed(kern, plain),
+            bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def check_sgm_v1_kernels(dev, report):
+    """The four v1 kernels against their plain versions, bitwise."""
+    from moving_object_detector_tpu_torch.ops import sgm, sgm_v1_cuda
+
+    rng = np.random.default_rng(5)
+    d = sgm_v1_cuda.D
+    serving = None
+    for h, w in ((H // 2, W // 2), (ODD_H, ODD_W)):
+        left = torch.tensor(rng.uniform(0, 1, (h, w)), dtype=torch.float32,
+                            device=dev)
+        right = torch.roll(left, -9, 1) + 0.02 * torch.randn(
+            h, w, device=dev)
+        cl, cr = sgm_v1_cuda.census(left), sgm_v1_cuda.census(right)
+        if not (torch.equal(cl, sgm.census_transform(left))
+                and torch.equal(cr, sgm.census_transform(right))):
+            raise AssertionError(f"sgm1_census differs at {h}x{w}")
+        cost = sgm_v1_cuda.cost_volume(cl, cr)
+        if not (cost.dtype == torch.int8 and torch.equal(
+                cost.to(torch.int32), sgm.hamming_cost(cl, cr, d))):
+            raise AssertionError(f"sgm1_cost differs at {h}x{w}")
+        total = sgm_v1_cuda.aggregate(cost, 10, 120)
+        if not torch.equal(total, sgm.aggregate_cost_volume(cost, 10, 120)):
+            raise AssertionError(f"sgm1_aggregate differs at {h}x{w}")
+        for subpixel, lr in ((True, True), (False, True), (True, False)):
+            disp = sgm_v1_cuda.wta(total, subpixel, lr, 1.0)
+            ref = sgm.wta_from_total(total, subpixel, lr, 1.0)
+            if not torch.equal(disp.view(torch.int32), ref.view(torch.int32)):
+                raise AssertionError(f"sgm1_wta differs at {h}x{w} "
+                                     f"subpixel={subpixel} lr={lr}")
+        n_valid = int((sgm_v1_cuda.wta(total) >= 0).sum())
+        if not 0.5 * h * w < n_valid < h * w:
+            raise AssertionError(f"sgm v1 check is vacuous: {n_valid} valid")
+        log(f"sgm v1 kernels bitwise equal to plain at {h}x{w} "
+            f"({n_valid} of {h * w} pixels valid)")
+        if serving is None:
+            serving = (h, w, left, cl, cr, cost, total)
+
+    h, w, left, cl, cr, cost, total = serving
+    n = h * w
+    scratch = torch.empty_like(total)
+    for vertical in (False, True):  # each launch alone, storing
+        one = lambda: sgm_v1_cuda._aggregate_pass(
+            cost, scratch, 10, 120, vertical=vertical, accumulate=False)
+        log(f"sgm1_aggregate launch along the "
+            f"{'columns' if vertical else 'rows'} alone at {h}x{w}: "
+            f"{median_ms(one):.4f} ms, on the device {device_ms(one):.4f} ms")
+    timings = {
+        "sgm1_census": (
+            lambda: sgm_v1_cuda.census(left),
+            lambda: sgm.census_transform(left),
+            bound_ms(2 * n * 4, n * 24 * OPS_PER_CENSUS_NEIGHBOUR),
+            "ops/sgm_pallas.py:260 in census_cost_volume_pallas :226 "
+            "(_census_kernel :161)"),
+        "sgm1_cost": (
+            lambda: sgm_v1_cuda.cost_volume(cl, cr),
+            lambda: sgm.hamming_cost(cl, cr, d),
+            bound_ms(2 * n * 4 + n * d, n * d * OPS_PER_COST),
+            "ops/sgm_pallas.py:271 in census_cost_volume_pallas :226 "
+            "(_cost_kernel :198)"),
+        "sgm1_aggregate": (  # both launches: along the rows, the columns
+            lambda: sgm_v1_cuda.aggregate(cost, 10, 120),
+            lambda: sgm.aggregate_cost_volume(cost, 10, 120),
+            bound_ms(n * d + n * d * 2, 4 * n * d * OPS_PER_DP_UPDATE),
+            "ops/sgm_pallas.py:121 in _dual_scan :111, via "
+            "aggregate_cost_volume_pallas :306 (_dual_scan_kernel :72)"),
+        "sgm1_wta": (
+            lambda: sgm_v1_cuda.wta(total),
+            lambda: sgm.wta_from_total(total),
+            bound_ms(n * d * 2 + n * 4, n * d * OPS_PER_WTA_CANDIDATE),
+            "ops/sgm_pallas.py:462 in wta_disparity_pallas :432 "
+            "(_wta_kernel :351)"),
+    }
+    for name, (kern, plain, (bms, by), replaces) in timings.items():
+        report[name] = dict(
+            name=name, route="cuda",
+            source="moving_object_detector_tpu_torch/csrc/sgm_v1.cu",
             replaces=replaces, max_abs_err=0.0, **timed(kern, plain),
             bound_ms=bms, bound_by=by, library_ms=None)
 
@@ -641,6 +741,10 @@ def profile_frames(model, config, stereo, frames, dev, step_ms: float,
         log(f"  {t / n:8.3f} ms/frame {c / n:7.1f} calls/frame  {name[:90]}")
 
 
+V1_KERNELS = ("sgm1_census", "sgm1_cost", "sgm1_aggregate", "sgm1_wta")
+V2_SGM_KERNELS = ("sgm_vertical", "sgm_horizontal", "sgm_wta")
+
+
 def kernel_counters():
     """Every wrapper's launch counter, by kernel name."""
     from moving_object_detector_tpu_torch.ops import (
@@ -650,11 +754,12 @@ def kernel_counters():
         gather_cuda,
         sceneflow_cuda,
         sgm_cuda,
+        sgm_v1_cuda,
     )
 
-    return (sgm_cuda.LAUNCHES, flow_corr_cuda.LAUNCHES, gather_cuda.LAUNCHES,
-            clustering_cuda.LAUNCHES, cluster_stats_cuda.LAUNCHES,
-            sceneflow_cuda.LAUNCHES)
+    return (sgm_cuda.LAUNCHES, sgm_v1_cuda.LAUNCHES, flow_corr_cuda.LAUNCHES,
+            gather_cuda.LAUNCHES, clustering_cuda.LAUNCHES,
+            cluster_stats_cuda.LAUNCHES, sceneflow_cuda.LAUNCHES)
 
 
 def reset_counts() -> None:
@@ -749,6 +854,7 @@ def run_checks_and_paths(dev, report) -> None:
     )
 
     check_sgm_kernels(dev, report)
+    check_sgm_v1_kernels(dev, report)
     check_corr_kernel(dev, report)
     check_gather_kernel(dev, report)
     cc_serving = check_cc_kernel(dev, report)
@@ -772,8 +878,8 @@ def run_checks_and_paths(dev, report) -> None:
     # The serving backends: "auto" is the kernels on the card.
     assert config.scene_flow.gather_backend == "auto"
     assert config.clusterer.cc_backend == "auto"
-    stereo = StereoModel.create(fx=721.5, fy=721.5, cx=W / 2.0, cy=H / 2.0,
-                                baseline=0.54, device=dev)
+    stereo = StereoModel.create(fx=FX, fy=FX, cx=W / 2.0, cy=H / 2.0,
+                                baseline=BASELINE, device=dev)
     frames = make_frames()
     run_frames(model, config, stereo, frames[:2], dev)  # warm-up
 
@@ -787,6 +893,9 @@ def run_checks_and_paths(dev, report) -> None:
         + f"; cc launches per frame {cc_per_frame}")
     if launches.pop("sceneflow_fused") != 0:
         raise AssertionError("the default path launched the fused construct")
+    for name in V1_KERNELS:
+        if launches.pop(name) != 0:
+            raise AssertionError(f"the default path launched {name}")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on the path")
@@ -916,6 +1025,201 @@ def run_checks_and_paths(dev, report) -> None:
     profile_frames(model, plain_scene, stereo, frames[:3], dev,
                    statistics.median(scene_ms[1:]),
                    "the plain gather, CC and stats")
+
+    run_v1_runner_path(model, config, stereo, frames, outs, med, dev, report)
+    run_cli(frames)
+    run_gnn(model, config, stereo, frames[:6], outs[:6], dev)
+
+
+def run_v1_runner_path(model, config, stereo, frames, outs, loop_ms, dev,
+                       report) -> None:
+    """This slice's path: the port's ``PipelineRunner`` at full width with
+    the v1 SGM kernels, over the frames fed as a sequence."""
+    from moving_object_detector_tpu_torch.io.runner import PipelineRunner
+
+    class KeepOutputs(PipelineRunner):
+        """A runner that also keeps each frame's FrameOutput."""
+
+        def _harvest(self, index, t, out):
+            self.outs.append(out)
+            return super()._harvest(index, t, out)
+
+    v1 = config.replace(sgm=dataclasses.replace(config.sgm,
+                                                backend="pallas_v1"))
+    sequence = [(left, right, 0.1 * k)
+                for k, (left, right, _) in enumerate(frames)]
+    n = len(frames)
+
+    def through_runner():
+        runner = KeepOutputs(v1, stereo, model, device=dev)
+        runner.outs = []
+        sync(dev)
+        t0 = time.perf_counter()
+        results = runner.run(sequence)
+        sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        t = runner.timer.samples
+        per_frame = [1e3 * (a + b + c) for a, b, c in zip(
+            t["ring_pop"], t["dispatch"], t["harvest"])]
+        return runner, results, wall_ms, statistics.median(per_frame[1:])
+
+    # In turns within this run, since the host's speed drifts: the
+    # hand-driven loop, the runner twice, the loop again, all on v1.
+    stage_ms = {}
+    run_frames(model, v1, stereo, frames, dev, stage_ms=stage_ms)  # warm-up
+    _, loop_a = run_frames(model, v1, stereo, frames, dev)
+    reset_counts()
+    runner, results, wall_ms, runner_a = through_runner()
+    counts = read_counts()
+    _, _, wall_b, runner_b = through_runner()
+    _, loop_b = run_frames(model, v1, stereo, frames, dev)
+
+    log("launches on the v1 runner path: " + json.dumps(counts))
+    expected = {"sgm1_census": 2 * n, "sgm1_cost": n, "sgm1_aggregate": 2 * n,
+                "sgm1_wta": n}
+    for name, want in expected.items():
+        if counts[name] != want:
+            raise AssertionError(f"v1 runner path: {name} launched "
+                                 f"{counts[name]} times, expected {want}")
+        report[name]["launches"] = counts[name]
+    for name in V2_SGM_KERNELS:
+        if counts[name] != 0:
+            raise AssertionError(f"v1 runner path launched {name}")
+    if len(results) != n or len(runner.outs) != n:
+        raise AssertionError(f"v1 runner path: {len(results)} results for "
+                             f"{n} frames")
+    for k, (a, b) in enumerate(zip(outs, runner.outs)):
+        da, db = a.disparity.disparity, b.disparity.disparity
+        if not torch.equal(da.view(torch.int32), db.view(torch.int32)):
+            raise AssertionError(
+                f"v1 and v2 disparity differ on frame {k}: "
+                f"{int((da != db).sum())} pixels")
+    check_outputs(runner.outs, frames, lambda o: o.capacity)
+    compare_detections(outs, runner.outs, "default path vs v1 runner path",
+                       atol=0.0)
+    for r, o in zip(results, outs):
+        if r.n_detections != int(o.detections.valid.sum()):
+            raise AssertionError(f"runner result {r.index}: "
+                                 f"{r.n_detections} detections")
+    log(f"PipelineRunner {H}x{W} pwc_v7 flow/2 sgm/2 pallas_v1 over {n} "
+        f"frames from the feeder thread and the ring: disparities bitwise "
+        f"equal to the v2 path's and detections identical on all {n} "
+        f"frames. Median ms/frame after the first, in turns: hand-driven "
+        f"detect_step loop {statistics.median(loop_a[1:]):.2f}, runner "
+        f"(ring pop + upload + detect_step + harvest) {runner_a:.2f}, "
+        f"runner {runner_b:.2f}, loop {statistics.median(loop_b[1:]):.2f}; "
+        f"the runner's whole runs {wall_ms / n:.2f} and {wall_b / n:.2f} "
+        f"ms/frame wall; the loop on the v2 kernels read {loop_ms:.2f} "
+        f"earlier in this run")
+    log("runner report:\n" + runner.report())
+    log("v1 per-stage ms/frame (synchronized): " + json.dumps(
+        {k: round(v / n, 3) for k, v in stage_ms.items()}))
+
+
+def run_main(argv) -> list:
+    """``run.main(argv)`` in process: its parsed JSON lines."""
+    from moving_object_detector_tpu_torch import run
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = run.main(argv)
+    if rc != 0:
+        raise AssertionError(f"run.main({argv}) returned {rc}")
+    return [json.loads(line) for line in out.getvalue().splitlines()
+            if line.startswith("{")]
+
+
+def run_cli(frames) -> None:
+    """The CLI on the frames as a recorded sequence; save and resume."""
+    n = len(frames)
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "frames.npz")
+        np.savez(npz, left=np.stack([f[0] for f in frames]),
+                 right=np.stack([f[1] for f in frames]),
+                 time=0.1 * np.arange(n))
+        export = os.path.join(tmp, "export")
+        base = ["--source", "npz", "--npz", npz, "--height", str(H),
+                "--width", str(W), "--fx", str(FX), "--baseline",
+                str(BASELINE), "--flow-input-scale", "2",
+                "--sgm-input-scale", "2"]
+        t0 = time.perf_counter()
+        whole = run_main(base + ["--frames", str(n), "--export-dir", export,
+                                 "--report"])
+        wall = time.perf_counter() - t0
+        if [r["frame"] for r in whole] != list(range(n)):
+            raise AssertionError(f"CLI printed frames "
+                                 f"{[r['frame'] for r in whole]}")
+        # The patch: disparity PATCH_D, centre column x + PATCH_W / 2.
+        z_true = FX * BASELINE / PATCH_D
+        hits = 0
+        for r, (_, _, x) in zip(whole, frames):
+            x_true = (x + PATCH_W / 2 - W / 2) * z_true / FX
+            hits += any(abs(d["center"][2] - z_true) < 1.0
+                        and abs(d["center"][0] - x_true) < 1.0
+                        for d in r["detections"])
+        if hits < n // 2:
+            raise AssertionError(f"CLI: the moving patch was detected on "
+                                 f"{hits} of {n} frames")
+        names = sorted(os.listdir(export))
+        for index in range(0, n, 5):  # --export-every defaults to 5
+            for kind in ("clusters.ppm", "flow.ppm", "static_flow.ppm",
+                         "depth.ppm", "velocity.ppm", "markers.json"):
+                if f"{index:06d}_{kind}" not in names:
+                    raise AssertionError(f"CLI export lacks "
+                                         f"{index:06d}_{kind}: {names}")
+        log(f"CLI run.main --source npz: {n} JSON lines in {wall:.1f} s "
+            f"(weights loaded, exports written), the patch detected on "
+            f"{hits} frames, {len(names)} export files; detections per "
+            f"frame {[len(r['detections']) for r in whole]}, tracks "
+            f"{[len(r['tracks']) for r in whole]}")
+
+        snap = os.path.join(tmp, "state.npz")
+        first = run_main(base + ["--frames", str(n // 2), "--save-state",
+                                 snap])
+        second = run_main(base + ["--frames", str(n - n // 2),
+                                  "--resume-state", snap])
+        worst = 0.0
+        for a, b in zip(whole, first + second):
+            same = (a["frame"] == b["frame"] and a["valid"] == b["valid"]
+                    and a["ego"] == b["ego"] and a["time"] == b["time"])
+            for key in ("detections", "tracks"):
+                same = same and ([o["id"] for o in a[key]]
+                                 == [o["id"] for o in b[key]])
+                if same:
+                    for oa, ob in zip(a[key], b[key]):
+                        for f in ("center", "velocity"):
+                            worst = max(worst, max(
+                                abs(p - q) for p, q in zip(oa[f], ob[f])))
+            if not same:
+                raise AssertionError(f"save + resume differs from the "
+                                     f"unbroken run on frame {a['frame']}")
+        if len(first + second) != n or not worst <= 1e-4:
+            raise AssertionError(f"save + resume: {len(first + second)} "
+                                 f"frames, max |diff| {worst}")
+        log(f"CLI save after {n // 2} frames + resume: ids, flags and times "
+            f"equal to the unbroken {n}-frame run, centres and velocities "
+            f"max |diff| {worst:.3g} (tolerance 1e-4)")
+
+
+def run_gnn(model, config, stereo, frames, greedy_outs, dev) -> None:
+    """The tracker's optimal assignment against the greedy one."""
+    gnn = config.replace(tracker=dataclasses.replace(config.tracker,
+                                                     association="gnn"))
+    outs, ms = run_frames(model, gnn, stereo, frames, dev)
+    worst = 0.0
+    for k, (a, b) in enumerate(zip(greedy_outs, outs)):
+        ta, tb = a.tracked.objects, b.tracked.objects
+        if not (torch.equal(ta.valid, tb.valid) and torch.equal(ta.id, tb.id)):
+            raise AssertionError(
+                f"gnn: frame {k} published tracks {tb.id.tolist()} differ "
+                f"from greedy {ta.id.tolist()}")
+        worst = max(worst, float((ta.center - tb.center).abs().max()))
+    if not worst <= 1e-4:
+        raise AssertionError(f"gnn: track centres differ by {worst}")
+    log(f"association='gnn' over {len(frames)} frames: the same track ids "
+        f"as greedy, centres max |diff| {worst:.3g}; published tracks "
+        f"{[int(o.tracked.objects.valid.sum()) for o in outs]}; median "
+        f"{statistics.median(ms[1:]):.2f} ms/frame")
 
 
 if __name__ == "__main__":

@@ -23,7 +23,7 @@ import time
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("sgm_v2", "corr", "gather", "cc", "cluster_stats",
+SOURCES = ("sgm_v2", "sgm_v1", "corr", "gather", "cc", "cluster_stats",
            "sceneflow_fused")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-fmad=false")

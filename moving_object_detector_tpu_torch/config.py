@@ -183,10 +183,7 @@ class TrackerConfig:
     association: str = "nn"
 
     def __post_init__(self):
-        if self.association == "gnn":
-            _unported("TrackerConfig.association", self.association,
-                      "Queue 1, ops/assignment.py")
-        if self.association != "nn":
+        if self.association not in ("nn", "gnn"):
             raise ValueError(f"unknown association {self.association!r}")
 
 
@@ -225,17 +222,19 @@ class SGMConfig:
     # check only — and every quality gate in this repo was validated with
     # it off. 0.95 reproduces the libSGM default when wanted.
     uniqueness_ratio: float = 0.0
-    # SGM backend: "auto" picks the fused v2 Pallas kernels on TPU and the
-    # lax.scan reference ("xla") on CPU; "pallas" forces v2; "pallas_v1"
-    # the superseded cost-volume kernels; *_interpret variants run the
-    # same kernels in interpreter mode (CPU parity tests).
+    # SGM backend: "pallas" = the census-input v2 CUDA kernels
+    # (ops/sgm_cuda.py; the name is the reference package's word for the
+    # kernel form), "pallas_v1" = the stored-volume v1 CUDA kernels
+    # (ops/sgm_v1_cuda.py: census, Hamming cost, aggregation over the
+    # stored int8 volume, WTA without uniqueness), "xla" = the plain form
+    # (the only one with 8 paths or D != 128), "auto" = "pallas" for CUDA
+    # tensors and "xla" for CPU tensors. The reference package's
+    # "*_interpret" names (its kernels in interpreter mode) have no
+    # meaning here and raise ValueError.
     backend: str = "auto"
 
     def __post_init__(self):
-        if self.backend.startswith("pallas_v1"):
-            _unported("SGMConfig.backend", self.backend,
-                      "Queue 2, kernels 9-12")
-        if self.backend not in ("auto", "pallas", "xla"):
+        if self.backend not in ("auto", "pallas", "pallas_v1", "xla"):
             raise ValueError(f"unknown SGM backend {self.backend!r}")
 
 

@@ -1,17 +1,22 @@
 """Semi-global matching stereo (the JAX package's ``ops/sgm.py`` and the
-v2 kernels' contract, ``ops/sgm_pallas2.py``).
+contracts of its two kernel generations, ``ops/sgm_pallas2.py`` (v2) and
+``ops/sgm_pallas.py`` (v1)).
 
-Census transform, Hamming matching cost, 4-path DP aggregation and the
-winner-take-all with parabola subpixel, optional uniqueness and the
+Census transform, Hamming matching cost, 4- or 8-path DP aggregation and
+the winner-take-all with parabola subpixel, optional uniqueness and the
 left-right check. The aggregation is expressed as the v2 kernels express
-it: each direction emits int8 path deltas ``m(d) - min L`` in [0, P2]
-with L = C + delta, so the aggregated total is the sum of the four delta
-volumes plus 4 C. Every volume here is (H, W, D) with D contiguous, the
-layout of the CUDA kernels in ``sgm_cuda.py``; the functions in this
+it: each direction emits path deltas ``m(d) - min L`` in [0, P2] with
+L = C + delta. The v2 kernels store the four int8 delta volumes and the
+WTA recomputes C from the census; the v1 kernels read a stored cost
+volume and sum L itself into an int16 total (``aggregate_cost_volume``).
+Every volume here is (H, W, D) with D contiguous, the layout of the CUDA
+kernels in ``sgm_cuda.py`` and ``sgm_v1_cuda.py``; the functions in this
 module are those kernels' plain versions and run on any device.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import torch
 
@@ -70,13 +75,18 @@ def hamming_cost(census_l: torch.Tensor, census_r: torch.Tensor,
     return cost
 
 
-def _dp_deltas(cost: torch.Tensor, p1: int, p2: int, reverse: bool):
+def _dp_deltas(cost: torch.Tensor, p1: int, p2: int, reverse: bool,
+               dx: int = 0, dtype=torch.int8):
     """One DP direction scanning axis 0 of ``cost`` (S, N, D): returns the
-    (S, N, D) int8 deltas of ``_dp_update_sub`` (ops/sgm_pallas2.py)."""
+    (S, N, D) deltas of ``_dp_update_sub`` (ops/sgm_pallas2.py) as
+    ``dtype``. ``dx`` = 1 / -1 makes the scan diagonal: line n's
+    predecessor is line n - dx of the previous step, and a line without a
+    predecessor starts from a zero carry (delta 0, L = C)."""
     s, n, d = cost.shape
-    out = torch.empty((s, n, d), dtype=torch.int8, device=cost.device)
+    out = torch.empty((s, n, d), dtype=dtype, device=cost.device)
     carry = torch.zeros((n, d), dtype=torch.int32, device=cost.device)
     big = torch.full((n, 1), _BIG, dtype=torch.int32, device=cost.device)
+    zero = torch.zeros((1, d), dtype=torch.int32, device=cost.device)
     for i in range(s):
         t = s - 1 - i if reverse else i
         prev_min = carry.min(dim=1, keepdim=True).values
@@ -85,8 +95,12 @@ def _dp_deltas(cost: torch.Tensor, p1: int, p2: int, reverse: bool):
         best = torch.minimum(torch.minimum(carry, prev_min + p2),
                              torch.minimum(dm1, dp1) + p1)
         delta = best - prev_min
-        out[t] = delta.to(torch.int8)
+        out[t] = delta.to(dtype)
         carry = cost[t] + delta
+        if dx == 1:
+            carry = torch.cat([zero, carry[:-1]], dim=0)
+        elif dx == -1:
+            carry = torch.cat([carry[1:], zero], dim=0)
     return out
 
 
@@ -121,6 +135,43 @@ def total_from_deltas(hf, hb, vf, vb, census_l, census_r) -> torch.Tensor:
     cost = hamming_cost(census_l, census_r, d)
     return (hf.to(torch.int32) + hb.to(torch.int32) + vf.to(torch.int32)
             + vb.to(torch.int32) + 4 * cost)
+
+
+def aggregate_diagonal(cost: torch.Tensor, dx: int, reverse: bool, p1: int,
+                       p2: int) -> torch.Tensor:
+    """Aggregated path cost L along one diagonal of an (H, W, D) cost
+    volume: a row scan in which pixel (y, x) follows (y -+ 1, x - dx).
+    (H, W, D) int32."""
+    cost = cost.to(torch.int32)
+    return cost + _dp_deltas(cost, p1, p2, reverse, dx=dx,
+                             dtype=torch.int32)
+
+
+def aggregate_cost_volume(cost: torch.Tensor, p1: int, p2: int,
+                          num_paths: int = 4) -> torch.Tensor:
+    """Sum of the directional path costs L = C + delta over a stored
+    (H, W, D) int8 / int32 cost volume: 4 paths (horizontal and vertical,
+    both ways) or 8 (the diagonals too). Costs are clipped to [0, 127] on
+    read. (H, W, D) int16; the plain version of the v1 aggregation
+    kernel."""
+    if num_paths not in (4, 8):
+        raise ValueError(f"SGMConfig.num_paths must be 4 or 8, got "
+                         f"{num_paths}")
+    if not (p2 >= 0 and num_paths * (127 + p2) < 32768):
+        raise ValueError(f"P2={p2}: {num_paths} path sums of up to "
+                         "127 + P2 must fit int16")
+    c = cost.to(torch.int32).clamp(0, 127)
+    ct = c.transpose(0, 1)
+    total = 4 * c
+    for rev in (False, True):
+        total += _dp_deltas(ct, p1, p2, rev,
+                            dtype=torch.int32).transpose(0, 1)
+        total += _dp_deltas(c, p1, p2, rev, dtype=torch.int32)
+    if num_paths == 8:
+        for dx in (1, -1):
+            for rev in (False, True):
+                total += aggregate_diagonal(c, dx, rev, p1, p2)
+    return total.to(torch.int16)
 
 
 def wta_from_total(total: torch.Tensor, subpixel: bool = True,
@@ -185,7 +236,8 @@ def _right_view_packed(packed, src, in_img, big):
 def sgm_disparity_raw(left: torch.Tensor, right: torch.Tensor,
                       cfg: SGMConfig = SGMConfig()) -> torch.Tensor:
     """Backend-dispatched SGM: (H, W) pair -> (H, W) f32 disparity, -1
-    invalid. "pallas" runs the CUDA kernels (CUDA tensors; their plain
+    invalid. "pallas" runs the census-input v2 CUDA kernels and
+    "pallas_v1" the stored-volume v1 kernels (CUDA tensors; their plain
     versions on CPU tensors), "xla" the plain form; "auto" picks by
     device."""
     from . import resolve_backend
@@ -198,33 +250,62 @@ def sgm_disparity_raw(left: torch.Tensor, right: torch.Tensor,
         raise ValueError(
             f"census_window {window} needs {window[0] * window[1] - 1} "
             "census bits; the int32 census transform supports at most 32")
-    if cfg.num_paths != 4:
-        raise NotImplementedError(
-            f"num_paths={cfg.num_paths}: the port aggregates the 4 h/v "
-            "paths only (ROADMAP.md Queue 1, 8-path SGM)")
+    if cfg.num_paths not in (4, 8):
+        raise ValueError(
+            f"SGMConfig.num_paths must be 4 or 8, got {cfg.num_paths}")
+    backend = cfg.backend
+    if backend == "auto":
+        backend = resolve_backend(backend, left.device)
+        if backend == "pallas" and (cfg.max_disparity != sgm_cuda.D
+                                    or cfg.num_paths != 4):
+            why = (f"max_disparity={cfg.max_disparity} (kernels are "
+                   f"specialized to {sgm_cuda.D})"
+                   if cfg.max_disparity != sgm_cuda.D
+                   else f"num_paths={cfg.num_paths} (kernels aggregate the "
+                   "4 h/v paths; diagonals are plain-form only)")
+            warnings.warn(
+                f"SGM backend 'auto': the CUDA kernels do not support "
+                f"{why}; taking the plain PyTorch form (slower). Set "
+                "backend='xla' explicitly to silence.", stacklevel=2)
+            backend = "xla"
+    if cfg.num_paths != 4 and backend.startswith("pallas"):
+        raise ValueError(
+            f"the SGM kernels aggregate exactly 4 paths (h/v); "
+            f"num_paths={cfg.num_paths} requires backend='xla'")
+    if backend.startswith("pallas") and cfg.max_disparity != sgm_cuda.D:
+        raise ValueError(
+            f"max_disparity={cfg.max_disparity}: the SGM kernels are "
+            f"specialized to D={sgm_cuda.D}; use backend='xla'")
+    kw = dict(p1=int(cfg.p1), p2=int(cfg.p2))
+    wta_kw = dict(subpixel=cfg.subpixel, lr_check=cfg.lr_check,
+                  lr_max_diff=float(cfg.lr_max_diff))
+    if backend == "pallas_v1":
+        if cfg.uniqueness_ratio > 0:
+            raise ValueError(
+                "uniqueness_ratio > 0 is supported by the 'xla' and "
+                "'pallas' (v2) backends only; the v1 WTA kernel does not "
+                "implement it")
+        from . import sgm_v1_cuda
+
+        # Census, cost, aggregation and WTA each on its kernel: the
+        # stored int8 volume is what sets v1 apart from v2.
+        cl = sgm_v1_cuda.census(left, window)
+        cr = sgm_v1_cuda.census(right, window)
+        cost = sgm_v1_cuda.cost_volume(cl, cr)
+        total = sgm_v1_cuda.aggregate(cost, **kw)
+        return sgm_v1_cuda.wta(total, **wta_kw)
     cl = census_transform(left, window)
     cr = census_transform(right, window)
-    backend = resolve_backend(cfg.backend, left.device)
-    kw = dict(p1=int(cfg.p1), p2=int(cfg.p2))
     if backend == "pallas":
-        if cfg.max_disparity != sgm_cuda.D:
-            raise ValueError(
-                f"max_disparity={cfg.max_disparity}: the SGM kernels are "
-                f"specialized to D={sgm_cuda.D}; use backend='xla'")
         vf, vb = sgm_cuda.vertical_deltas(cl, cr, **kw)
         hf, hb = sgm_cuda.horizontal_deltas(cl, cr, **kw)
         return sgm_cuda.wta(
-            hf, hb, vf, vb, cl, cr, subpixel=cfg.subpixel,
-            lr_check=cfg.lr_check, lr_max_diff=float(cfg.lr_max_diff),
-            uniqueness_ratio=float(cfg.uniqueness_ratio))
-    d = cfg.max_disparity
-    vf, vb = vertical_deltas(cl, cr, max_disparity=d, **kw)
-    hf, hb = horizontal_deltas(cl, cr, max_disparity=d, **kw)
-    total = total_from_deltas(hf, hb, vf, vb, cl, cr)
+            hf, hb, vf, vb, cl, cr,
+            uniqueness_ratio=float(cfg.uniqueness_ratio), **wta_kw)
+    cost = hamming_cost(cl, cr, cfg.max_disparity)
+    total = aggregate_cost_volume(cost, num_paths=cfg.num_paths, **kw)
     return wta_from_total(
-        total, subpixel=cfg.subpixel, lr_check=cfg.lr_check,
-        lr_max_diff=float(cfg.lr_max_diff),
-        uniqueness_ratio=float(cfg.uniqueness_ratio))
+        total, uniqueness_ratio=float(cfg.uniqueness_ratio), **wta_kw)
 
 
 def disparity_with_metadata(disp: torch.Tensor, stereo: StereoModel,

@@ -1,6 +1,7 @@
 """Multi-object tracking (the JAX package's ``tracker.py``): a
 fixed-capacity bank of constant-velocity Kalman filters with greedy
-nearest-neighbour association.
+nearest-neighbour association ("nn") or optimal assignment ("gnn",
+``ops/assignment.py``).
 
 State x = (px, py, vx, vy); Q = diag(0.003, 0.003, 0.01, 0.01), R = 0.2 I,
 P0 = 0.1 I; association cost -N(x; mean, cov) gated at sqrt(mahalanobis)
@@ -170,7 +171,13 @@ def correct(state: TrackerState, t, detections: MovingObjects,
                             detections.bounding_box], dim=1)
     obs_valid = detections.valid
 
-    match = _greedy_associate(_association_cost(state, obs4, obs_valid, cfg))
+    cost = _association_cost(state, obs4, obs_valid, cfg)
+    if cfg.association == "gnn":
+        from .ops.assignment import auction_assignment
+
+        match = auction_assignment(cost)
+    else:
+        match = _greedy_associate(cost)
     matched = match >= 0
     midx = torch.clamp(match, min=0).long()
 

@@ -48,3 +48,14 @@ class Tunables:
                 v, device=device,
                 dtype=torch.int32 if k in _INT_FIELDS else torch.float32)
             for k, v in vals.items()})
+
+    def replace_values(self, **kw) -> "Tunables":
+        """A copy with the given scalars updated (a retune between
+        frames), each on the device and in the type of the field it
+        replaces."""
+        conv = {
+            k: torch.tensor(
+                v, device=getattr(self, k).device,
+                dtype=torch.int32 if k in _INT_FIELDS else torch.float32)
+            for k, v in kw.items()}
+        return dataclasses.replace(self, **conv)

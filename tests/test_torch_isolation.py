@@ -16,12 +16,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "moving_object_detector_tpu_torch")
 FORBIDDEN = re.compile(r"\b(jax|flax|orbax)\b|moving_object_detector_tpu(?!_)")
 MODULES = ("config", "types", "tunables", "_build", "ops.geometry",
-           "ops.resize", "ops.sgm", "ops.sgm_cuda", "ops.flow_ops",
-           "ops.flow_corr_cuda", "ops.clustering", "ops.clustering_cuda",
-           "ops.cluster_stats", "ops.cluster_stats_cuda", "ops.gather_cuda",
-           "ops.sceneflow_cuda", "models.pwc_net",
-           "utils.checkpoint", "egomotion", "sceneflow", "clusterer",
-           "tracker", "pipeline")
+           "ops.resize", "ops.sgm", "ops.sgm_cuda", "ops.sgm_v1_cuda",
+           "ops.flow_ops", "ops.flow_corr_cuda", "ops.clustering",
+           "ops.clustering_cuda", "ops.cluster_stats",
+           "ops.cluster_stats_cuda", "ops.gather_cuda", "ops.sceneflow_cuda",
+           "ops.image", "ops.assignment", "models.pwc_net",
+           "utils.checkpoint", "utils.profiling", "egomotion", "sceneflow",
+           "clusterer", "tracker", "pipeline", "io", "io.readers", "io.viz",
+           "io.frame_ring", "io.runner", "run")
 
 
 def test_import_leaves_jax_out():
@@ -39,6 +41,20 @@ def test_import_leaves_jax_out():
     res = subprocess.run([sys.executable, "-c", code, ROOT], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_module_list_covers_the_package():
+    """Every module of the port is in the import scan."""
+    found = set()
+    for base, _, files in os.walk(PORT):
+        if "_build" in base or "__pycache__" in base:
+            continue
+        rel = os.path.relpath(base, PORT)
+        prefix = "" if rel == "." else rel.replace(os.sep, ".") + "."
+        for f in files:
+            if f.endswith(".py") and f != "__init__.py":
+                found.add(prefix + f[:-3])
+    assert found <= set(MODULES), sorted(found - set(MODULES))
 
 
 def _sources():
@@ -85,13 +101,58 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert state.pose.device.type == "cpu"
 
 
+def test_host_loop_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """The runner, the CLI and the state loaders resolve their device like
+    the other entry points: cuda, or raise; the CPU only when asked."""
+    from moving_object_detector_tpu_torch import run
+    from moving_object_detector_tpu_torch.io.runner import PipelineRunner
+    from moving_object_detector_tpu_torch.pipeline import PipelineState
+    from moving_object_detector_tpu_torch.types import StereoModel
+    from moving_object_detector_tpu_torch.utils import checkpoint
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = tcfg.PipelineConfig(height=32, width=64)
+    stereo = StereoModel.create(fx=1.0, fy=1.0, cx=0.0, cy=0.0, baseline=0.5,
+                                device="cpu")
+    state = PipelineState.create(config, device="cpu")
+    snap = str(tmp_path / "s.npz")
+    checkpoint.save_pipeline_state(snap, state)
+    tree = {"pose": state.pose.numpy(), "prev_left": state.prev_left.numpy(),
+            "prev_disparity": {k: v.numpy() for k, v in
+                               vars(state.prev_disparity).items()},
+            "prev_time": 0.0, "has_prev": False,
+            "tracker": {k: v.numpy() for k, v in
+                        vars(state.tracker).items()},
+            "frame_index": 0}
+    for call in (lambda: PipelineRunner(config, stereo),
+                 lambda: run.main(["--frames", "1", "--preset", "tiny"]),
+                 lambda: checkpoint.restore_pipeline_state(snap),
+                 lambda: checkpoint.pipeline_state_from_numpy(tree)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert PipelineRunner(config, stereo, device="cpu").device.type == "cpu"
+    back = checkpoint.restore_pipeline_state(snap, device="cpu")
+    assert back.pose.device.type == "cpu" and back.frame_index == 0
+    assert checkpoint.pipeline_state_from_numpy(
+        tree, device="cpu").tracker.cov.shape == state.tracker.cov.shape
+    assert "--device" not in run.build_parser().format_help()
+
+
 @pytest.mark.parametrize("make", [
-    lambda: tcfg.SGMConfig(backend="pallas_v1"),
-    lambda: tcfg.TrackerConfig(association="gnn"),
-], ids=["sgm_pallas_v1", "association_gnn"])
+    lambda: tcfg.FlowNetConfig(warp_backend="two_pass"),
+], ids=["warp_two_pass"])
 def test_config_raises_for_unported_values(make):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         make()
+
+
+@pytest.mark.parametrize("make,field,value", [
+    (lambda: tcfg.SGMConfig(backend="pallas_v1"), "backend", "pallas_v1"),
+    (lambda: tcfg.TrackerConfig(association="gnn"), "association", "gnn"),
+    (lambda: tcfg.SGMConfig(num_paths=8), "num_paths", 8),
+], ids=["sgm_pallas_v1", "association_gnn", "sgm_eight_paths"])
+def test_config_constructs_what_this_slice_ported(make, field, value):
+    assert getattr(make(), field) == value
 
 
 @pytest.mark.parametrize("cls,field,value", [
@@ -131,14 +192,19 @@ def test_cpu_tensors_take_the_plain_versions():
         gather_cuda,
         sceneflow_cuda,
         sgm_cuda,
+        sgm_v1_cuda,
     )
 
-    counters = (sgm_cuda.LAUNCHES, flow_corr_cuda.LAUNCHES,
+    counters = (sgm_cuda.LAUNCHES, sgm_v1_cuda.LAUNCHES,
+                flow_corr_cuda.LAUNCHES,
                 gather_cuda.LAUNCHES, clustering_cuda.LAUNCHES,
                 cluster_stats_cuda.LAUNCHES, sceneflow_cuda.LAUNCHES)
     before = [dict(c) for c in counters]
     cl = torch.randint(0, 1 << 24, (6, 40), dtype=torch.int32)
     sgm_cuda.vertical_deltas(cl, cl, 10, 120)
+    total = sgm_v1_cuda.aggregate(sgm_v1_cuda.cost_volume(
+        sgm_v1_cuda.census(torch.rand(6, 40)), cl), 10, 120)
+    assert sgm_v1_cuda.wta(total).shape == (6, 40)
     flow_corr_cuda.correlation(torch.randn(1, 3, 5, 7),
                                torch.randn(1, 3, 5, 7), 2)
     h, w = 6, 9

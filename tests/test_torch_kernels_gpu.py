@@ -23,6 +23,7 @@ from moving_object_detector_tpu_torch.ops import (
     sceneflow_cuda,
     sgm,
     sgm_cuda,
+    sgm_v1_cuda,
 )
 
 pytestmark = pytest.mark.gpu
@@ -53,6 +54,108 @@ def test_sgm_kernels_bitwise_equal_plain(cuda, h, w):
         out = sgm_cuda.wta(hf, hb, vf, vb, cl, cr, uniqueness_ratio=uniq)
         ref = sgm.wta_from_total(total, uniqueness_ratio=uniq)
         assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+V1_SHAPES = [(188, 621), (125, 350), (16, 50), (7, 33)]
+
+
+def _v1_pair(cuda, h, w):
+    rng = np.random.default_rng(h + w)
+    left = torch.tensor(rng.uniform(0, 1, (h, w)), dtype=torch.float32,
+                        device=cuda)
+    right = torch.roll(left, -9, 1) + 0.02 * torch.randn(h, w, device=cuda)
+    return left, right
+
+
+@pytest.mark.parametrize("window", [(5, 5), (3, 7), (1, 3)])
+@pytest.mark.parametrize("h,w", V1_SHAPES)
+def test_sgm_v1_census_kernel_bitwise_equal_plain(cuda, h, w, window):
+    before = sgm_v1_cuda.LAUNCHES["sgm1_census"]
+    for img in _v1_pair(cuda, h, w):
+        assert torch.equal(sgm_v1_cuda.census(img, window),
+                           sgm.census_transform(img, window))
+    assert sgm_v1_cuda.LAUNCHES["sgm1_census"] == before + 2
+
+
+@pytest.mark.parametrize("h,w", V1_SHAPES)
+def test_sgm_v1_cost_kernel_equals_plain(cuda, h, w):
+    left, right = _v1_pair(cuda, h, w)
+    cl, cr = sgm.census_transform(left), sgm.census_transform(right)
+    cost = sgm_v1_cuda.cost_volume(cl, cr)
+    assert cost.dtype == torch.int8
+    assert torch.equal(cost.to(torch.int32), sgm.hamming_cost(cl, cr, 128))
+
+
+@pytest.mark.parametrize("p1,p2", [(10, 120), (3, 500), (0, 0)])
+@pytest.mark.parametrize("h,w", V1_SHAPES)
+def test_sgm_v1_aggregate_kernel_equals_plain(cuda, h, w, p1, p2):
+    """Hamming costs and a volume of arbitrary int8 values (negative ones
+    are clipped to 0 on read); two launches a call."""
+    left, right = _v1_pair(cuda, h, w)
+    cost = sgm_v1_cuda.cost_volume(sgm.census_transform(left),
+                                   sgm.census_transform(right))
+    noise = torch.randint(-128, 128, (h, w, 128), dtype=torch.int8,
+                          device=cuda)
+    before = sgm_v1_cuda.LAUNCHES["sgm1_aggregate"]
+    for vol in (cost, noise):
+        out = sgm_v1_cuda.aggregate(vol, p1, p2)
+        assert out.dtype == torch.int16
+        assert torch.equal(out, sgm.aggregate_cost_volume(vol, p1, p2))
+    assert sgm_v1_cuda.LAUNCHES["sgm1_aggregate"] == before + 4
+
+
+@pytest.mark.parametrize("subpixel,lr_check", [(True, True), (False, True),
+                                               (True, False)])
+@pytest.mark.parametrize("h,w", V1_SHAPES)
+def test_sgm_v1_wta_kernel_bitwise_equal_plain(cuda, h, w, subpixel,
+                                               lr_check):
+    left, right = _v1_pair(cuda, h, w)
+    cl, cr = sgm.census_transform(left), sgm.census_transform(right)
+    total = sgm.aggregate_cost_volume(sgm.hamming_cost(cl, cr, 128), 10, 120)
+    noise = torch.randint(0, 600, (h, w, 128), dtype=torch.int16,
+                          device=cuda)
+    for vol in (total, noise):
+        out = sgm_v1_cuda.wta(vol, subpixel, lr_check, 1.0)
+        ref = sgm.wta_from_total(vol, subpixel, lr_check, 1.0)
+        assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("h,w", V1_SHAPES[:3])
+def test_sgm_v1_path_equals_v2_path_bitwise(cuda, h, w):
+    from moving_object_detector_tpu_torch.config import SGMConfig
+
+    left, right = _v1_pair(cuda, h, w)
+    v1 = sgm.sgm_disparity_raw(left, right, SGMConfig(backend="pallas_v1"))
+    v2 = sgm.sgm_disparity_raw(left, right, SGMConfig(backend="pallas"))
+    assert torch.equal(v1.view(torch.int32), v2.view(torch.int32))
+    assert float((v1 >= 0).float().mean()) > 0.5
+
+
+def test_sgm_v1_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    cost = torch.zeros((4, 8, 128), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="int16"):
+        sgm_v1_cuda.aggregate(cost, 10, 9000)
+    with pytest.raises(ValueError):
+        sgm_v1_cuda.aggregate(cost.to(torch.int32), 10, 120)
+    with pytest.raises(ValueError):
+        sgm_v1_cuda.wta(cost)
+    with pytest.raises(TypeError):
+        sgm_v1_cuda.cost_volume(torch.zeros((4, 8), device=cuda),
+                                torch.zeros((4, 8), device=cuda))
+
+
+def test_auction_assignment_on_the_card_equals_cpu(cuda):
+    from moving_object_detector_tpu_torch.ops.assignment import (
+        auction_assignment,
+    )
+
+    rng = np.random.default_rng(0)
+    cost = np.full((64, 16), np.inf, np.float32)
+    open_ = rng.uniform(size=cost.shape) < 0.08
+    cost[open_] = -rng.uniform(0, 1, int(open_.sum())).astype(np.float32)
+    out = auction_assignment(torch.from_numpy(cost).to(cuda))
+    assert out.device.type == "cuda"
+    assert torch.equal(out.cpu(), auction_assignment(torch.from_numpy(cost)))
 
 
 @pytest.mark.parametrize("r", [4, 2])
