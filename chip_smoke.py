@@ -6,20 +6,28 @@
    (one nvcc per source, in parallel) and prints the build seconds.
 2. Holds each of the twelve kernels against its plain PyTorch version on
    the card, at the serving shapes and at an odd shape: the SGM deltas and
-   disparity bitwise (v2), the v1 census, cost volume, aggregated total
-   and disparity bitwise, the correlation within 1e-5, the windowed gather
-   equal with NaN positions equal, the connected components exactly on six
-   kinds of input (three runs each), the cluster stats exactly (min / max
-   by value), the fused scene-flow construct with exact NaN masks and
-   values within 1e-5. Prints each kernel's time and its plain version's
-   time (CUDA events, median after warm-up).
+   disparity bitwise (v2; the WTA for every combination of ``subpixel``,
+   ``lr_check`` and ``uniqueness_ratio``, also at a width below 128, at
+   widths that are and are not a multiple of 4, on a constant pair and on
+   random int8 volumes), the v1 census, cost volume, aggregated total
+   and disparity bitwise, the correlation within 1e-5 for r = 1..4 and
+   B = 1, 2 with two runs bit-identical, the windowed gather equal with
+   NaN positions equal, the connected components exactly on six kinds of
+   input (three runs each), the cluster stats exactly (min / max by
+   value; a NaN member coordinate gives NaN), the fused scene-flow
+   construct with exact NaN masks and values within 1e-5. Prints each
+   kernel's time and its plain version's time (CUDA events, median after
+   warm-up), the correlation's per pyramid level and at its smallest
+   case (the launch floor).
 3. Runs ``pipeline.detect_step`` at the KITTI serving point (376 x 1242,
    pwc_v7 weights, flow and SGM at half resolution, two-window clusterer
    crop, default backends: windowed gather, CC and cluster-stats kernels)
    on frames made from ``tests/fixtures/real_textures.npz``: a textured
    background in depth strips and a pasted patch moving 12 px a frame.
    Checks shapes, finiteness, the known strip disparities and the patch's
-   flow, and that every kernel of this path launched on it. Prints
+   flow, and that every kernel of this path launched on it: a frame, the
+   census kernel twice, each SGM v2 kernel once, the correlation four
+   times, the plain census never. Prints
    ms/frame, pairs/s and per-stage ms.
 4. Runs the same frames with the gather, CC and stats in their plain
    forms and requires identical detections, label images and overflow;
@@ -188,12 +196,34 @@ def make_frames(n_frames=N_FRAMES, second_patch=False):
     return frames
 
 
+WTA_FLAGS = [(sub, lr, uniq) for sub in (True, False)
+             for lr in (True, False) for uniq in (0.0, 0.95)]
+# Widths below D = 128, not a multiple of the 4 pixels a warp takes, and
+# one that is.
+WTA_EDGE_SHAPES = ((20, 37), (9, 351), (9, 350))
+
+
+def check_wta(sgm, sgm_cuda, vols, cl, cr, what: str) -> None:
+    """sgm_wta against its plain version, bitwise, for every flag
+    combination."""
+    total = sgm.total_from_deltas(*vols, cl, cr)
+    for sub, lr, uniq in WTA_FLAGS:
+        kw = dict(subpixel=sub, lr_check=lr, lr_max_diff=1.0,
+                  uniqueness_ratio=uniq)
+        d = sgm_cuda.wta(*vols, cl, cr, **kw)
+        ref = sgm.wta_from_total(total, **kw)
+        if not torch.equal(d.view(torch.int32), ref.view(torch.int32)):
+            bad = int((d.view(torch.int32) != ref.view(torch.int32)).sum())
+            raise AssertionError(f"sgm_wta differs on {what} with {kw}: "
+                                 f"{bad} pixels")
+
+
 def check_sgm_kernels(dev, report):
     from moving_object_detector_tpu_torch.ops import sgm, sgm_cuda
 
     rng = np.random.default_rng(0)
     serving = None
-    for h, w in ((H // 2, W // 2), (125, 350)):
+    for h, w in ((H // 2, W // 2), (ODD_H, ODD_W)) + WTA_EDGE_SHAPES:
         left = torch.tensor(rng.uniform(0, 1, (h, w)), dtype=torch.float32,
                             device=dev)
         right = torch.roll(left, -9, 1) + 0.02 * torch.randn(
@@ -208,16 +238,25 @@ def check_sgm_kernels(dev, report):
                            ("sgm_horizontal", hb, phb)):
             if not torch.equal(a, b):
                 raise AssertionError(f"{name} deltas differ at {h}x{w}")
-        for uniq in (0.0, 0.95):
-            d = sgm_cuda.wta(hf, hb, vf, vb, cl, cr, uniqueness_ratio=uniq)
-            ref = sgm.wta_from_total(
-                sgm.total_from_deltas(phf, phb, pvf, pvb, cl, cr),
-                uniqueness_ratio=uniq)
-            if not torch.equal(d.view(torch.int32), ref.view(torch.int32)):
-                raise AssertionError(f"sgm_wta differs at {h}x{w} u={uniq}")
-        log(f"sgm kernels bitwise equal to plain at {h}x{w}")
+        check_wta(sgm, sgm_cuda, (hf, hb, vf, vb), cl, cr, f"{h}x{w}")
+        log(f"sgm kernels bitwise equal to plain at {h}x{w} "
+            f"({len(WTA_FLAGS)} WTA flag combinations)")
         if serving is None:
             serving = (h, w, cl, cr, vf, vb, hf, hb)
+    # Ties over d everywhere: a constant pair has census 0 and cost 0. And
+    # volumes of arbitrary int8 values, negative ones too.
+    h, w = WTA_EDGE_SHAPES[0]
+    flat = torch.zeros((h, w), dtype=torch.int32, device=dev)
+    zeros = [torch.zeros((h, w, sgm_cuda.D), dtype=torch.int8, device=dev)
+             for _ in range(4)]
+    check_wta(sgm, sgm_cuda, zeros, flat, flat, "a constant pair")
+    noise = [torch.randint(-128, 128, (ODD_H, ODD_W, sgm_cuda.D),
+                           dtype=torch.int8, device=dev) for _ in range(4)]
+    cn = torch.randint(0, 1 << 24, (2, ODD_H, ODD_W), dtype=torch.int32,
+                       device=dev)
+    check_wta(sgm, sgm_cuda, noise, cn[0], cn[1], "random int8 volumes")
+    log("sgm_wta bitwise equal to plain on a constant pair (ties over d) "
+        "and on random int8 volumes")
 
     h, w, cl, cr, vf, vb, hf, hb = serving
     n = h * w
@@ -339,25 +378,43 @@ def check_corr_kernel(dev, report):
     g = torch.Generator(device=dev).manual_seed(0)
     err = 0.0
     ms = dev_ms = plain_ms = t_bytes = t_ops = 0.0
-    for c, h, w in CORR_LEVELS + ((64, 125, 350), (7, 13, 37)):
-        for r in (4, 2):
-            f1 = torch.randn(1, c, h, w, device=dev, generator=g)
-            f2 = torch.randn(1, c, h, w, device=dev, generator=g)
+    shapes = [(1, *lvl) for lvl in CORR_LEVELS]
+    shapes += [(1, 64, ODD_H, ODD_W), (1, 7, 13, 37), (2, 96, 12, 40),
+               (2, 7, 5, 3)]
+    for b, c, h, w in shapes:
+        for r in (4, 3, 2, 1):
+            f1 = torch.randn(b, c, h, w, device=dev, generator=g)
+            f2 = torch.randn(b, c, h, w, device=dev, generator=g)
             out = flow_corr_cuda.correlation(f1, f2, r)
             ref = flow_ops.correlation(f1, f2, r)
             e = (out - ref).abs().max().item()
             if not e <= 1e-5:
-                raise AssertionError(f"corr differs at {c}x{h}x{w} r={r}: {e}")
+                raise AssertionError(
+                    f"corr differs at {b}x{c}x{h}x{w} r={r}: {e}")
+            # The channel slices are added in a fixed order: same bits.
+            if not torch.equal(out, flow_corr_cuda.correlation(f1, f2, r)):
+                raise AssertionError(
+                    f"corr differs between two runs at {b}x{c}x{h}x{w} r={r}")
             err = max(err, e)
+        if (c, h, w) not in CORR_LEVELS + ((7, 13, 37),) or b != 1:
+            continue
+        f1 = torch.randn(b, c, h, w, device=dev, generator=g)
+        f2 = torch.randn(b, c, h, w, device=dev, generator=g)
+        t = timed(lambda: flow_corr_cuda.correlation(f1, f2, 4),
+                  lambda: flow_ops.correlation(f1, f2, 4))
         if (c, h, w) in CORR_LEVELS:  # the main path's four calls
-            t = timed(lambda: flow_corr_cuda.correlation(f1, f2, 4),
-                      lambda: flow_ops.correlation(f1, f2, 4))
+            log(f"corr kernel at {c}x{h}x{w} r=4: {t['ms']:.4f} ms, on the "
+                f"device {t['device_ms']:.4f} ms, plain {t['plain_ms']:.4f}")
             ms += t["ms"]
             dev_ms += t["device_ms"]
             plain_ms += t["plain_ms"]
             t_bytes += (2 * c + 81) * h * w * 4
             t_ops += 2 * 81 * c * h * w
-    log(f"corr kernel within {err:.3g} of plain (tolerance 1e-5)")
+        else:
+            log(f"corr launch floor, the smallest case {c}x{h}x{w} r=4: "
+                f"{t['ms']:.4f} ms, on the device {t['device_ms']:.4f} ms")
+    log(f"corr kernel within {err:.3g} of plain (tolerance 1e-5), two runs "
+        f"bit-identical, at {len(shapes)} shapes, r = 1..4")
     bms, by = bound_ms(t_bytes, t_ops)
     report["corr"] = dict(
         name="corr", route="cuda",
@@ -568,6 +625,22 @@ def check_stats_kernel(dev, report, cc_serving):
         if serving is None:
             serving = (labels, points, roots)
     labels, points, roots = serving
+    # A NaN coordinate on a member pixel makes that slot's min and max on
+    # that axis NaN, in the kernel as in the plain version.
+    member = (labels == roots[0]).nonzero()[0]
+    holed = points.clone()
+    holed[member[0], member[1], 1] = float("nan")
+    out = cluster_stats_cuda.cluster_stats(labels, holed, roots)
+    ref = cluster_stats.cluster_stats(labels, holed, roots)
+    if not (bool(torch.isnan(ref[1][0, 1])) and bool(torch.isnan(ref[2][0, 1]))
+            and int(torch.isnan(ref[1]).sum()) == 1
+            and equal_with_nans(out[1], ref[1])
+            and equal_with_nans(out[2], ref[2])
+            and torch.equal(out[0], ref[0]) and torch.equal(out[3], ref[3])):
+        raise AssertionError("cluster_stats with a NaN member coordinate "
+                             "differs from plain")
+    log("cluster_stats kernel equal to plain with a NaN coordinate on a "
+        "member pixel (NaN min and max for that slot and axis alone)")
     n = CROP_H * CROP_W
     bms, by = bound_ms(20 * n, 16 * n)
     report["cluster_stats"] = dict(
@@ -742,6 +815,7 @@ def profile_frames(model, config, stereo, frames, dev, step_ms: float,
 
 
 V1_KERNELS = ("sgm1_census", "sgm1_cost", "sgm1_aggregate", "sgm1_wta")
+V1_ONLY_KERNELS = V1_KERNELS[1:]  # the census kernel serves both paths
 V2_SGM_KERNELS = ("sgm_vertical", "sgm_horizontal", "sgm_wta")
 
 
@@ -884,18 +958,37 @@ def run_checks_and_paths(dev, report) -> None:
     run_frames(model, config, stereo, frames[:2], dev)  # warm-up
 
     # The main path: default backends, every kernel but the fused construct.
+    from moving_object_detector_tpu_torch.ops import sgm
+
+    plain_census, plain_census_calls = sgm.census_transform, []
+    sgm.census_transform = lambda *a, **k: (plain_census_calls.append(1)
+                                            or plain_census(*a, **k))
     reset_counts()
     cc_per_frame = []
-    outs, step_ms = run_frames(model, config, stereo, frames, dev,
-                               cc_per_frame=cc_per_frame)
+    try:
+        outs, step_ms = run_frames(model, config, stereo, frames, dev,
+                                   cc_per_frame=cc_per_frame)
+    finally:
+        sgm.census_transform = plain_census
     launches = read_counts()
     log("launches on the main path: " + json.dumps(launches)
         + f"; cc launches per frame {cc_per_frame}")
     if launches.pop("sceneflow_fused") != 0:
         raise AssertionError("the default path launched the fused construct")
-    for name in V1_KERNELS:
+    for name in V1_ONLY_KERNELS:
         if launches.pop(name) != 0:
             raise AssertionError(f"the default path launched {name}")
+    per_frame = {"sgm1_census": 2, "sgm_vertical": 1, "sgm_horizontal": 1,
+                 "sgm_wta": 1, "corr": len(CORR_LEVELS)}
+    for name, k in per_frame.items():
+        if launches[name] != k * len(frames):
+            raise AssertionError(
+                f"the default path launched {name} {launches[name]} times "
+                f"over {len(frames)} frames, expected {k} a frame")
+    if plain_census_calls:
+        raise AssertionError(
+            f"the default path called the plain census_transform "
+            f"{len(plain_census_calls)} times")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on the path")
@@ -1081,7 +1174,8 @@ def run_v1_runner_path(model, config, stereo, frames, outs, loop_ms, dev,
         if counts[name] != want:
             raise AssertionError(f"v1 runner path: {name} launched "
                                  f"{counts[name]} times, expected {want}")
-        report[name]["launches"] = counts[name]
+        if name != "sgm1_census":  # its count is the default path's
+            report[name]["launches"] = counts[name]
     for name in V2_SGM_KERNELS:
         if counts[name] != 0:
             raise AssertionError(f"v1 runner path launched {name}")

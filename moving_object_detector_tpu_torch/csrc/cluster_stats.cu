@@ -18,9 +18,12 @@
 // into per-block partial min / max / count per slot with shared-memory
 // atomics; then one global atomic per slot, value and block. Float min and
 // max go through the order-preserving int encoding (enc below), so the
-// integer atomicMin / atomicMax order them as floats; a NaN coordinate is
-// skipped. Three launches in one entry: init of the encoded accumulators,
-// the pass, and the decode into the f32 outputs.
+// integer atomicMin / atomicMax order them as floats. A NaN has no place in
+// that order: a NaN coordinate of a member pixel sets a flag bit for its
+// slot and axis instead, and the decode writes NaN for that slot's min and
+// max on that axis, as the TPU kernel's and the plain version's reductions
+// give it. Three launches in one entry: init of the accumulators, the pass,
+// and the decode into the f32 outputs.
 //
 // The entry returns the first cudaGetLastError() that is not success.
 
@@ -42,13 +45,18 @@ __device__ __forceinline__ float dec(int i) {
 }
 
 // acc layout: [0, 3cap) encoded mins, [3cap, 6cap) encoded maxs,
-// [6cap, 7cap) counts.
+// [6cap, 7cap) counts, [7cap, 8cap) NaN flags (bit a: axis a saw a NaN).
+constexpr int kAccPerSlot = 8;
+
+__device__ __forceinline__ int acc_init(int t, int cap) {
+  return t < 3 * cap   ? enc(CUDART_INF_F)
+         : t < 6 * cap ? enc(-CUDART_INF_F)
+                       : 0;
+}
+
 __global__ void stats_init_kernel(int* __restrict__ acc, int cap) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= 7 * cap) return;
-  acc[t] = t < 3 * cap   ? enc(CUDART_INF_F)
-           : t < 6 * cap ? enc(-CUDART_INF_F)
-                         : 0;
+  if (t < kAccPerSlot * cap) acc[t] = acc_init(t, cap);
 }
 
 __global__ void stats_kernel(const int* __restrict__ labels,
@@ -58,14 +66,12 @@ __global__ void stats_kernel(const int* __restrict__ labels,
                              int H, int W, int stride_row, int stride_px,
                              int cap) {
   __shared__ int s_roots[kMaxCap];
-  __shared__ int s_acc[7 * kMaxCap];
+  __shared__ int s_acc[kAccPerSlot * kMaxCap];
   const int n = H * W;
   const int tid = threadIdx.x;
   if (tid < cap) s_roots[tid] = roots[tid];
-  for (int t = tid; t < 7 * cap; t += kThreads) {
-    s_acc[t] = t < 3 * cap   ? enc(CUDART_INF_F)
-               : t < 6 * cap ? enc(-CUDART_INF_F)
-                             : 0;
+  for (int t = tid; t < kAccPerSlot * cap; t += kThreads) {
+    s_acc[t] = acc_init(t, cap);
   }
   __syncthreads();
 
@@ -91,6 +97,8 @@ __global__ void stats_kernel(const int* __restrict__ labels,
           const int e = enc(v);
           atomicMin(&s_acc[3 * c + a], e);
           atomicMax(&s_acc[3 * cap + 3 * c + a], e);
+        } else {
+          atomicOr(&s_acc[7 * cap + c], 1 << a);
         }
       }
       atomicAdd(&s_acc[6 * cap + c], 1);
@@ -110,6 +118,9 @@ __global__ void stats_kernel(const int* __restrict__ labels,
   }
   if (tid < cap && s_acc[6 * cap + tid] != 0) {
     atomicAdd(&acc[6 * cap + tid], s_acc[6 * cap + tid]);
+    if (s_acc[7 * cap + tid] != 0) {
+      atomicOr(&acc[7 * cap + tid], s_acc[7 * cap + tid]);
+    }
   }
 }
 
@@ -118,10 +129,10 @@ __global__ void stats_decode_kernel(const int* __restrict__ acc,
                                     float* __restrict__ maxs,
                                     int* __restrict__ csize, int cap) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t < 3 * cap) {
-    mins[t] = dec(acc[t]);
-  } else if (t < 6 * cap) {
-    maxs[t - 3 * cap] = dec(acc[t]);
+  if (t < 6 * cap) {
+    const int i = t % (3 * cap);  // slot i / 3, axis i % 3
+    const bool nan = (acc[7 * cap + i / 3] >> (i % 3)) & 1;
+    (t < 3 * cap ? mins : maxs)[i] = nan ? CUDART_NAN_F : dec(acc[t]);
   } else if (t < 7 * cap) {
     csize[t - 6 * cap] = acc[t];
   }
@@ -138,7 +149,7 @@ extern "C" int cluster_stats(const int* labels, const float* points,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n = H * W;
-  const int small = (7 * cap + kThreads - 1) / kThreads;
+  const int small = (kAccPerSlot * cap + kThreads - 1) / kThreads;
   stats_init_kernel<<<small, kThreads, 0, stream>>>(scratch, cap);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -21,14 +21,28 @@
 //   neighbours d-1 / d+1 by one __shfl_up / __shfl_down, the Hamming cost
 //   __popc(cl[y,x] ^ cr[y,x-d]) computed in the kernel (32 for x < d), and
 //   one 4-byte store per lane per step (128 coalesced bytes per warp).
-// - WTA (sgm_wta): the bytes it moves (4 delta volumes in, one f32 plane
-//   out). One block per image row: the right-view argmin of the whole row
-//   goes to shared memory first, then each warp takes one pixel, finds the
-//   packed (total * 128 + d) minimum (lowest d wins ties), the neighbour
-//   costs for the parabola, the optional uniqueness minimum, and the LR
-//   check against the shared right-view row.
-// Later work: cp.async/TMA staging of the census rows, several scan lines
-// per warp, fusing the WTA into the last DP pass; wgmma has no role here.
+// - WTA (sgm_wta): the bytes it moves. It must read the four delta volumes
+//   (4 x H x W x 128 bytes, 59.8 MB at 188 x 621) and two census images and
+//   write one f32 plane, and that is all it reads: each volume once, 16
+//   bytes a lane. One block per image row, the row's two census lines
+//   staged in shared memory. A warp takes four pixels, eight lanes a pixel,
+//   a lane the 16 disparities of its 16-byte load; a 4 x 4 byte transpose
+//   (__byte_perm) brings the four volumes' deltas of one disparity into one
+//   word and __dp4a adds them to 4 C. The left argmin is the minimum of
+//   total * 128 + d (lowest d wins ties) over the lane's 16 and then over
+//   the 8 lanes in three shuffles. The right view needs total(x + d, d) for
+//   every right pixel: gathered, that is a one-byte read 129 bytes apart
+//   from each volume (a 32-byte sector fetched for every byte used, on
+//   volumes larger than L2). Instead each left cell pushes its packed value
+//   into best_r[x - d] in shared memory with atomicMin while it is in
+//   registers; min is order-free, so the result is the same from run to
+//   run. The disparity before the LR check waits in shared memory; after
+//   one barrier a second phase, one thread a pixel, does the LR check and
+//   writes. The eight lanes of a pixel touch right pixels 16 apart, so the
+//   shared rows carry 4 pad words every 16 (sw below): with four
+//   neighbouring pixels a warp's 32 accesses fall into 32 banks.
+// Later work: several scan lines per warp in the DP, fusing the WTA into
+// the last DP pass; wgmma has no role here.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 // -fPIC -fmad=false. -fmad=false keeps the subpixel float math bitwise
@@ -100,87 +114,114 @@ __global__ void dp_kernel(const int* __restrict__ cl,
   }
 }
 
-__device__ __forceinline__ int total_at(const int8_t* hf, const int8_t* hb,
-                                        const int8_t* vf, const int8_t* vb,
-                                        size_t o, int cost) {
-  return static_cast<int>(hf[o]) + static_cast<int>(hb[o]) +
-         static_cast<int>(vf[o]) + static_cast<int>(vb[o]) + 4 * cost;
+// Index of right pixel x in a padded shared row: 4 pad words every 16.
+__host__ __device__ __forceinline__ int sw(int x) {
+  return x + ((x >> 4) << 2);
 }
 
-// One block per image row. Dynamic shared memory: W ints (right view).
-__global__ void wta_kernel(const int8_t* __restrict__ hf,
-                           const int8_t* __restrict__ hb,
-                           const int8_t* __restrict__ vf,
-                           const int8_t* __restrict__ vb,
-                           const int* __restrict__ cl,
-                           const int* __restrict__ cr,
-                           float* __restrict__ out, int H, int W,
-                           int subpixel, int lr_check, float lr_max_diff,
-                           float uniqueness) {
-  extern __shared__ int best_r[];
+// Minimum over the 8 lanes that share a pixel.
+__device__ __forceinline__ int group_min(int v) {
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+constexpr int kWtaThreads = 512;
+
+// One block per image row. Dynamic shared memory, in words: the right
+// census line and the right view's packed minimum (padded, sw(W - 1) + 1
+// each), the left census line and the disparity before the LR check (W
+// each).
+__global__ void __launch_bounds__(kWtaThreads)
+    wta_kernel(const int8_t* __restrict__ hf, const int8_t* __restrict__ hb,
+               const int8_t* __restrict__ vf, const int8_t* __restrict__ vb,
+               const int* __restrict__ cl, const int* __restrict__ cr,
+               float* __restrict__ out, int H, int W, int subpixel,
+               int lr_check, float lr_max_diff, float uniqueness) {
+  extern __shared__ int smem[];
+  const int padded = sw(W - 1) + 1;
+  int* cr_s = smem;
+  int* best_r = cr_s + padded;
+  int* cl_s = best_r + padded;
+  float* sdisp = reinterpret_cast<float*>(cl_s + W);
   const int y = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int d0 = lane * 4;
   const size_t row = static_cast<size_t>(y) * W;
 
-  if (lr_check) {
-    // Right view: best_r(xr) = argmin_d total(y, xr + d, d), x < W only.
-    for (int xr = warp; xr < W; xr += nwarps) {
-      const int crv = cr[row + xr];
-      int best = kHuge;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int d = d0 + k;
-        const int x = xr + d;
-        if (x < W) {
-          const size_t o = (row + x) * kD + d;
-          const int tot = total_at(hf, hb, vf, vb, o, __popc(cl[row + x] ^ crv));
-          best = min(best, tot * kD + d);
-        }
-      }
-      best = warp_min(best);
-      if (lane == 0) best_r[xr] = best & (kD - 1);
-    }
-    __syncthreads();
+  for (int x = threadIdx.x; x < W; x += kWtaThreads) {
+    cr_s[sw(x)] = cr[row + x];
+    best_r[sw(x)] = kHuge;
+    cl_s[x] = cl[row + x];
   }
+  __syncthreads();
 
-  for (int x = warp; x < W; x += nwarps) {
-    const size_t o = (row + x) * kD + d0;
-    const char4 a = *reinterpret_cast<const char4*>(hf + o);
-    const char4 b = *reinterpret_cast<const char4*>(hb + o);
-    const char4 c = *reinterpret_cast<const char4*>(vf + o);
-    const char4 e = *reinterpret_cast<const char4*>(vb + o);
-    const int clv = cl[row + x];
-    int t[4];
-    t[0] = a.x + b.x + c.x + e.x;
-    t[1] = a.y + b.y + c.y + e.y;
-    t[2] = a.z + b.z + c.z + e.z;
-    t[3] = a.w + b.w + c.w + e.w;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int l = lane & 7;  // this lane holds disparities 16 l .. 16 l + 15
+  for (int xg = warp * 4; xg < W; xg += (kWtaThreads >> 5) * 4) {
+    // Past the row's end a lane repeats the last pixel: the same values
+    // go into the same cells again, which neither a min nor a store of an
+    // equal value notices, and the warp stays whole for the shuffles.
+    const int x = min(xg + (lane >> 3), W - 1);
+    const size_t o = (row + x) * kD + 16 * l;
+    const int4 qa = __ldcs(reinterpret_cast<const int4*>(hf + o));
+    const int4 qb = __ldcs(reinterpret_cast<const int4*>(hb + o));
+    const int4 qc = __ldcs(reinterpret_cast<const int4*>(vf + o));
+    const int4 qe = __ldcs(reinterpret_cast<const int4*>(vb + o));
+    const int wa[4] = {qa.x, qa.y, qa.z, qa.w};
+    const int wb[4] = {qb.x, qb.y, qb.z, qb.w};
+    const int wc[4] = {qc.x, qc.y, qc.z, qc.w};
+    const int we[4] = {qe.x, qe.y, qe.z, qe.w};
+    const int clv = cl_s[x];
+    int t[16];
     int packed = kHuge;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const int d = d0 + k;
-      const int cost = x >= d ? __popc(clv ^ cr[row + x - d]) : kMaxCost;
-      t[k] += 4 * cost;
-      packed = min(packed, t[k] * kD + d);
+      // Bytes j of the four volumes' words into word j.
+      const unsigned ab_lo = __byte_perm(wa[k], wb[k], 0x5140);
+      const unsigned ab_hi = __byte_perm(wa[k], wb[k], 0x7362);
+      const unsigned ce_lo = __byte_perm(wc[k], we[k], 0x5140);
+      const unsigned ce_hi = __byte_perm(wc[k], we[k], 0x7362);
+      const int r[4] = {
+          static_cast<int>(__byte_perm(ab_lo, ce_lo, 0x5410)),
+          static_cast<int>(__byte_perm(ab_lo, ce_lo, 0x7632)),
+          static_cast<int>(__byte_perm(ab_hi, ce_hi, 0x5410)),
+          static_cast<int>(__byte_perm(ab_hi, ce_hi, 0x7632))};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int d = 16 * l + 4 * k + j;
+        const int xr = x - d;
+        const int slot = sw(max(xr, 0));
+        const int cost = xr >= 0 ? __popc(clv ^ cr_s[slot]) : kMaxCost;
+        const int tot = __dp4a(r[j], 0x01010101, 4 * cost);
+        t[4 * k + j] = tot;
+        const int pk = tot * kD + d;
+        packed = min(packed, pk);
+        // Right view: this cell is candidate d of right pixel x - d.
+        if (lr_check && xr >= 0) atomicMin(&best_r[slot], pk);
+      }
     }
-    const int run = warp_min(packed);
+    const int run = group_min(packed);
     const int best = run & (kD - 1);
     const int c0 = run >> 7;
     int cm = kHuge, cp = kHuge, um = kHuge;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int d = d0 + k;
-      if (d == best - 1) cm = t[k];
-      if (d == best + 1) cp = t[k];
-      if (abs(d - best) > 1) um = min(um, t[k]);
+    for (int i = 0; i < 16; ++i) {
+      const int d = 16 * l + i;
+      if (d == best - 1) cm = t[i];
+      if (d == best + 1) cp = t[i];
     }
-    cm = warp_min(cm);
-    cp = warp_min(cp);
-    if (uniqueness > 0.0f) um = warp_min(um);
-    if (lane == 0) {
+    if (subpixel) {
+      cm = group_min(cm);
+      cp = group_min(cp);
+    }
+    if (uniqueness > 0.0f) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        if (abs(16 * l + i - best) > 1) um = min(um, t[i]);
+      }
+      um = group_min(um);
+    }
+    if (l == 0) {
       float disp = static_cast<float>(best);
       if (subpixel && best > 0 && best < kD - 1) {
         const float fc0 = static_cast<float>(c0);
@@ -196,19 +237,25 @@ __global__ void wta_kernel(const int8_t* __restrict__ hf,
       if (uniqueness > 0.0f)
         valid = valid && (static_cast<float>(um) * uniqueness >=
                           static_cast<float>(c0));
-      if (lr_check) {
-        const int xr = static_cast<int>(rintf(static_cast<float>(x) - disp));
-        const int xc = min(max(xr, 0), W - 1);
-        valid = valid && xr >= 0 &&
-                fabsf(disp - static_cast<float>(best_r[xc])) <= lr_max_diff;
-      }
-      out[row + x] = valid ? disp : -1.0f;
+      sdisp[x] = valid ? disp : -1.0f;  // a valid disparity is >= 0
     }
+  }
+  __syncthreads();
+
+  for (int x = threadIdx.x; x < W; x += kWtaThreads) {
+    const float disp = sdisp[x];
+    bool valid = disp >= 0.0f;
+    if (lr_check && valid) {
+      const int xr = static_cast<int>(rintf(static_cast<float>(x) - disp));
+      const int xc = min(max(xr, 0), W - 1);
+      const int d_r = best_r[sw(xc)] & (kD - 1);
+      valid = xr >= 0 && fabsf(disp - static_cast<float>(d_r)) <= lr_max_diff;
+    }
+    out[row + x] = valid ? disp : -1.0f;
   }
 }
 
 constexpr int kDpThreads = 128;  // 4 scan lines per block
-constexpr int kWtaThreads = 256;
 
 }  // namespace
 
@@ -238,7 +285,15 @@ int sgm_wta(const void* hf, const void* hb, const void* vf, const void* vb,
             const void* cl, const void* cr, void* out, int H, int W,
             int subpixel, int lr_check, float lr_max_diff, float uniqueness,
             void* stream) {
-  const size_t smem = static_cast<size_t>(W) * sizeof(int);
+  const size_t smem =
+      (2 * static_cast<size_t>(sw(W - 1) + 1) + 2 * static_cast<size_t>(W)) *
+      sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        wta_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   wta_kernel<<<H, kWtaThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(hf), static_cast<const int8_t*>(hb),
       static_cast<const int8_t*>(vf), static_cast<const int8_t*>(vb),

@@ -38,13 +38,10 @@ def cluster_stats(labels: torch.Tensor, points: torch.Tensor,
                   roots: torch.Tensor):
     """(cid, mins, maxs, csize) as ``cluster_stats.cluster_stats`` gives
     them. ``points`` may be a strided view (a crop of the frame's cloud)
-    as long as its last dimension is dense; it is read in place.
-
-    Where the kernel differs from the plain version: its min and max drop
-    a NaN coordinate of a member pixel (``fminf`` / ``fmaxf`` semantics)
-    where ``torch.amin`` propagates it. On the detector's path members of
-    a cluster have finite points, so the two agree there. A min or max of
-    zero may carry either sign."""
+    as long as its last dimension is dense; it is read in place. A NaN
+    coordinate of a member pixel makes that slot's min and max on that
+    axis NaN, as in the plain version. A min or max of zero may carry
+    either sign."""
     if labels.device.type == "cpu":
         return plain.cluster_stats(labels, points, roots)
     dev = labels.device
@@ -69,7 +66,7 @@ def cluster_stats(labels: torch.Tensor, points: torch.Tensor,
     mins = torch.empty((cap, 3), dtype=torch.float32, device=dev)
     maxs = torch.empty((cap, 3), dtype=torch.float32, device=dev)
     csize = torch.empty((cap,), dtype=torch.int32, device=dev)
-    scratch = torch.empty((7 * cap,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((8 * cap,), dtype=torch.int32, device=dev)
     rc = _lib().cluster_stats(
         labels.data_ptr(), points.data_ptr(), roots.data_ptr(),
         cid.data_ptr(), mins.data_ptr(), maxs.data_ptr(), csize.data_ptr(),

@@ -17,6 +17,7 @@ from .. import _build
 from . import flow_ops
 
 LAUNCHES = {"corr": 0}
+MAX_GRID = 65535  # blocks along a grid's second and third dimension
 _typed = False
 
 
@@ -51,6 +52,10 @@ def correlation(f1: torch.Tensor, f2: torch.Tensor,
     f1 = f1.contiguous()
     f2 = f2.contiguous()
     b, c, h, w = f1.shape
+    if min(b, c, h, w) < 1 or h > MAX_GRID or b > MAX_GRID:
+        raise ValueError(f"shape {tuple(f1.shape)}: the kernel takes "
+                         f"non-empty inputs with B, H <= {MAX_GRID} (its "
+                         "grid is tiles x H x B)")
     k = (2 * search_range + 1) ** 2
     out = torch.empty((b, k, h, w), dtype=torch.float32, device=f1.device)
     rc = _lib().corr_forward(f1.data_ptr(), f2.data_ptr(), out.data_ptr(),

@@ -238,10 +238,11 @@ def sgm_disparity_raw(left: torch.Tensor, right: torch.Tensor,
     """Backend-dispatched SGM: (H, W) pair -> (H, W) f32 disparity, -1
     invalid. "pallas" runs the census-input v2 CUDA kernels and
     "pallas_v1" the stored-volume v1 kernels (CUDA tensors; their plain
-    versions on CPU tensors), "xla" the plain form; "auto" picks by
-    device."""
+    versions on CPU tensors), both after the census kernel; "xla" the
+    plain form; "auto" picks by device."""
     from . import resolve_backend
     from . import sgm_cuda
+    from . import sgm_v1_cuda
 
     left = left.float()
     right = right.float()
@@ -279,23 +280,23 @@ def sgm_disparity_raw(left: torch.Tensor, right: torch.Tensor,
     kw = dict(p1=int(cfg.p1), p2=int(cfg.p2))
     wta_kw = dict(subpixel=cfg.subpixel, lr_check=cfg.lr_check,
                   lr_max_diff=float(cfg.lr_max_diff))
+    if backend == "pallas_v1" and cfg.uniqueness_ratio > 0:
+        raise ValueError(
+            "uniqueness_ratio > 0 is supported by the 'xla' and "
+            "'pallas' (v2) backends only; the v1 WTA kernel does not "
+            "implement it")
+    # Both kernel generations take their census images from the census
+    # kernel; the plain form keeps the plain transform.
+    census = (sgm_v1_cuda.census if backend.startswith("pallas")
+              else census_transform)
+    cl = census(left, window)
+    cr = census(right, window)
     if backend == "pallas_v1":
-        if cfg.uniqueness_ratio > 0:
-            raise ValueError(
-                "uniqueness_ratio > 0 is supported by the 'xla' and "
-                "'pallas' (v2) backends only; the v1 WTA kernel does not "
-                "implement it")
-        from . import sgm_v1_cuda
-
-        # Census, cost, aggregation and WTA each on its kernel: the
-        # stored int8 volume is what sets v1 apart from v2.
-        cl = sgm_v1_cuda.census(left, window)
-        cr = sgm_v1_cuda.census(right, window)
+        # Cost, aggregation and WTA each on its kernel: the stored int8
+        # volume is what sets v1 apart from v2.
         cost = sgm_v1_cuda.cost_volume(cl, cr)
         total = sgm_v1_cuda.aggregate(cost, **kw)
         return sgm_v1_cuda.wta(total, **wta_kw)
-    cl = census_transform(left, window)
-    cr = census_transform(right, window)
     if backend == "pallas":
         vf, vb = sgm_cuda.vertical_deltas(cl, cr, **kw)
         hf, hb = sgm_cuda.horizontal_deltas(cl, cr, **kw)

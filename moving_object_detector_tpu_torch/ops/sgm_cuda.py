@@ -19,6 +19,8 @@ from . import sgm
 
 D = 128
 LAUNCHES = {"sgm_vertical": 0, "sgm_horizontal": 0, "sgm_wta": 0}
+# The WTA kernel keeps one image row in shared memory, 4.5 words a pixel.
+MAX_WTA_WIDTH = 8192
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -93,13 +95,20 @@ def wta(hf, hb, vf, vb, cl, cr, subpixel: bool = True, lr_check: bool = True,
                                   uniqueness_ratio)
     cl, cr = _check_census(cl, cr)
     h, w = cl.shape
+    if w > MAX_WTA_WIDTH:
+        raise ValueError(f"width {w} exceeds the WTA kernel's "
+                         f"{MAX_WTA_WIDTH} (one row in shared memory)")
     vols = []
     for v in (hf, hb, vf, vb):
         if v.device != cl.device or v.dtype != torch.int8 or \
                 tuple(v.shape) != (h, w, D):
             raise ValueError(f"delta volumes must be ({h}, {w}, {D}) int8 "
                              f"on {cl.device}")
-        vols.append(v.contiguous())
+        v = v.contiguous()
+        if v.data_ptr() % 16:
+            raise ValueError("delta volumes must be 16-byte aligned (the "
+                             "kernel loads 16 bytes a lane)")
+        vols.append(v)
     out = torch.empty((h, w), dtype=torch.float32, device=cl.device)
     rc = _lib().sgm_wta(
         *(v.data_ptr() for v in vols), cl.data_ptr(), cr.data_ptr(),

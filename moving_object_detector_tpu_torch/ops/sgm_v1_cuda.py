@@ -67,7 +67,9 @@ def _check_volume(vol: torch.Tensor, dtype, what: str) -> torch.Tensor:
 
 def census(img: torch.Tensor, window=(5, 5)) -> torch.Tensor:
     """Census transform, (H, W) -> (H, W) int32, bitwise equal to
-    ``sgm.census_transform``."""
+    ``sgm.census_transform``. Both kernel generations ("pallas" and
+    "pallas_v1" in ``sgm.sgm_disparity_raw``) take their census images
+    from here."""
     if img.device.type == "cpu":
         return sgm.census_transform(img, window)
     wh, ww = window

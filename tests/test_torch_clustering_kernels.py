@@ -184,8 +184,8 @@ def _stats_case(h, w, cap, n_comp, n_sel, seed):
 ])
 def test_cluster_stats_equal_pallas_interpret(h, w, cap, n_comp, n_sel):
     lab, pts, roots = _stats_case(h, w, cap, n_comp, n_sel, seed=h)
-    # The Pallas wrapper zero-pads the planes; NaN is kept out of its
-    # member pixels here, as on the detector's path.
+    # Member pixels are finite here, as on the detector's path; a NaN
+    # member has its own test below.
     ref = cluster_stats_pallas(jnp.asarray(lab), jnp.asarray(pts),
                                jnp.asarray(roots), interpret=True)
     out = cluster_stats_cuda.cluster_stats(
@@ -195,6 +195,30 @@ def test_cluster_stats_equal_pallas_interpret(h, w, cap, n_comp, n_sel):
     assert int(out[3].sum()) == int((out[0].numpy() < cap).sum())
     assert (out[3].numpy()[:n_sel] > 0).all()
     assert np.isinf(out[1].numpy()[n_sel:]).all()
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_cluster_stats_nan_member_equal_pallas_interpret(axis):
+    """A NaN coordinate on a member pixel makes that slot's min and max on
+    that axis NaN, in the Pallas kernel and in the port's plain version
+    (which the CUDA kernel is held against on the card): exact, NaN
+    positions included."""
+    h, w, cap, n_sel = 37, 171, 16, 6
+    lab, pts, roots = _stats_case(h, w, cap, 9, n_sel, seed=7)
+    slot = 2
+    i, j = np.argwhere(lab == roots[slot])[3]
+    assert np.isfinite(pts[i, j]).all()
+    pts[i, j, axis] = np.nan
+    ref = cluster_stats_pallas(jnp.asarray(lab), jnp.asarray(pts),
+                               jnp.asarray(roots), interpret=True)
+    out = cluster_stats_cuda.cluster_stats(
+        torch.from_numpy(lab), torch.from_numpy(pts), torch.from_numpy(roots))
+    for a, b, name in zip(out, ref, ("cid", "mins", "maxs", "csize")):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
+    for corner in (out[1].numpy(), out[2].numpy()):
+        nan = np.isnan(corner)
+        assert nan[slot, axis] and nan.sum() == 1
+        assert np.isfinite(corner[:n_sel][~nan[:n_sel]]).all()
 
 
 @pytest.mark.parametrize("case", sorted(CLUSTER_CASES))

@@ -56,6 +56,66 @@ def test_sgm_kernels_bitwise_equal_plain(cuda, h, w):
         assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
 
 
+# name: (h, w, constant pair, subpixel, lr_check, uniqueness_ratio); the
+# cases of tests/test_torch_kernel_redesign.py, there against the JAX
+# package on the CPU.
+WTA_CASES = {
+    "constant_ties_over_d": (6, 37, True, True, True, 0.0),
+    "width_37_below_d": (6, 37, False, True, True, 0.0),
+    "width_350": (5, 350, False, True, True, 0.0),
+    "width_351_not_multiple_of_4": (5, 351, False, True, True, 0.0),
+    "lr_check_off": (6, 150, False, True, False, 0.0),
+    "subpixel_off": (6, 150, False, False, True, 0.0),
+    "uniqueness_0.95": (6, 150, False, True, True, 0.95),
+    "serving_all_off": (188, 621, False, False, False, 0.95),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WTA_CASES))
+def test_sgm_wta_edge_cases_bitwise_equal_plain(cuda, case):
+    h, w, constant, subpixel, lr_check, uniq = WTA_CASES[case]
+    rng = np.random.default_rng(w)
+    left = np.full((h, w), 0.5) if constant else rng.uniform(0, 1, (h, w))
+    left = torch.tensor(left, dtype=torch.float32, device=cuda)
+    right = left if constant else (
+        torch.roll(left, -7, 1) + 0.02 * torch.randn(h, w, device=cuda))
+    cl, cr = sgm.census_transform(left), sgm.census_transform(right)
+    vols = (*sgm.horizontal_deltas(cl, cr, 10, 120),
+            *sgm.vertical_deltas(cl, cr, 10, 120))
+    kw = dict(subpixel=subpixel, lr_check=lr_check, lr_max_diff=1.0,
+              uniqueness_ratio=uniq)
+    before = sgm_cuda.LAUNCHES["sgm_wta"]
+    out = sgm_cuda.wta(*vols, cl, cr, **kw)
+    assert sgm_cuda.LAUNCHES["sgm_wta"] == before + 1
+    ref = sgm.wta_from_total(sgm.total_from_deltas(*vols, cl, cr), **kw)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    if constant:
+        assert bool((out == 0).all())
+
+
+def test_sgm_wta_takes_arbitrary_int8_volumes_and_refuses_wide_rows(cuda):
+    h, w = 9, 131
+    vols = [torch.randint(-128, 128, (h, w, 128), dtype=torch.int8,
+                          device=cuda) for _ in range(4)]
+    cl, cr = torch.randint(0, 1 << 24, (2, h, w), dtype=torch.int32,
+                           device=cuda)
+    out = sgm_cuda.wta(*vols, cl, cr, uniqueness_ratio=0.9)
+    ref = sgm.wta_from_total(sgm.total_from_deltas(*vols, cl, cr),
+                             uniqueness_ratio=0.9)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    wide = sgm_cuda.MAX_WTA_WIDTH + 1
+    vol = torch.zeros((1, wide, 128), dtype=torch.int8, device=cuda)
+    census = torch.zeros((1, wide), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match=str(sgm_cuda.MAX_WTA_WIDTH)):
+        sgm_cuda.wta(vol, vol, vol, vol, census, census)
+    # The widest row it takes needs the opt-in shared memory above 48 KB.
+    ok = sgm_cuda.MAX_WTA_WIDTH
+    out = sgm_cuda.wta(*(vol[:, :ok].contiguous(),) * 4, census[:, :ok],
+                       census[:, :ok])
+    torch.cuda.synchronize()
+    assert bool((out == 0).all())
+
+
 V1_SHAPES = [(188, 621), (125, 350), (16, 50), (7, 33)]
 
 
@@ -169,6 +229,30 @@ def test_correlation_kernel_matches_plain(cuda, c, h, w, r):
     assert (out - ref).abs().max().item() <= 1e-5
 
 
+@pytest.mark.parametrize("b,c,h,w,r", [
+    (2, 7, 5, 3, 1), (2, 7, 5, 3, 4), (1, 7, 2, 21, 2), (1, 7, 2, 21, 3),
+    (1, 196, 3, 10, 4), (2, 196, 3, 10, 2), (1, 128, 6, 20, 4),
+    (1, 96, 12, 40, 4), (2, 64, 125, 350, 3)])
+def test_correlation_kernel_edge_cases_match_plain(cuda, b, c, h, w, r):
+    """Few and many channels, images below one tile, B = 2, rows that are
+    and are not 16-byte aligned: within 1e-5 (the sum order differs), and
+    the same bits in two runs (the channel slices are added in order)."""
+    g = torch.Generator(device=cuda).manual_seed(c + h + w + r)
+    f1 = torch.randn(b, c, h, w, device=cuda, generator=g)
+    f2 = torch.randn(b, c, h, w, device=cuda, generator=g)
+    out = flow_corr_cuda.correlation(f1, f2, r)
+    assert (out - flow_ops.correlation(f1, f2, r)).abs().max().item() <= 1e-5
+    assert torch.equal(out, flow_corr_cuda.correlation(f1, f2, r))
+    # Contiguous tensors that start 4 bytes into their storage are not
+    # 16-byte aligned: they take the 4-byte copies whatever the width.
+    n = f1.numel()
+    v1 = torch.randn(n + 1, device=cuda, generator=g)[1:].view_as(f1)
+    v2 = torch.randn(n + 1, device=cuda, generator=g)[1:].view_as(f1)
+    assert v1.is_contiguous() and v1.data_ptr() % 16 == 4
+    out = flow_corr_cuda.correlation(v1, v2, r)
+    assert (out - flow_ops.correlation(v1, v2, r)).abs().max().item() <= 1e-5
+
+
 def _equal_with_nans(a, b):
     return (torch.equal(torch.isnan(a), torch.isnan(b))
             and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
@@ -275,6 +359,31 @@ def test_cluster_stats_kernel_equals_plain(cuda, h, w, cap):
     # Values, not bits: a zero may carry either sign.
     assert bool((out[1] == ref[1]).all()) and bool((out[2] == ref[2]).all())
     assert int(out[3].sum()) > 0
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_cluster_stats_kernel_propagates_a_nan_member(cuda, axis):
+    """A NaN coordinate on a member pixel: NaN min and max for that slot
+    and axis, as in the plain version; nothing else changes."""
+    h, w, cap = 125, 350, 8
+    dyn, depth = _cc_case("random", h, w)
+    labels = clustering_cuda.connected_components(
+        torch.from_numpy(dyn).to(cuda), torch.from_numpy(depth).to(cuda),
+        0.15, neighbor_distance=4)
+    found, sizes = torch.unique(labels[labels < h * w], return_counts=True)
+    roots = found[torch.argsort(sizes, descending=True)][:cap].to(
+        torch.int32)
+    points = torch.randn(h, w, 3, device=cuda)
+    i, j = (labels == roots[1]).nonzero()[2]
+    points[i, j, axis] = float("nan")
+    out = cluster_stats_cuda.cluster_stats(labels, points, roots)
+    ref = cluster_stats.cluster_stats(labels, points, roots)
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[3], ref[3])
+    assert _equal_with_nans(out[1], ref[1])
+    assert _equal_with_nans(out[2], ref[2])
+    for corner in (out[1], out[2]):
+        assert bool(torch.isnan(corner[1, axis]))
+        assert int(torch.isnan(corner).sum()) == 1
 
 
 @pytest.mark.parametrize("h,w", [(376, 1242), (125, 350)])
