@@ -18,7 +18,11 @@
    construct with exact NaN masks and values within 1e-5. Prints each
    kernel's time and its plain version's time (CUDA events, median after
    warm-up), the correlation's per pyramid level and at its smallest
-   case (the launch floor).
+   case (the launch floor). The horizontal DP is also held at the edge
+   widths of ``tests/dp_cc_cases.py`` for four (P1, P2) pairs, the CC on
+   its tile-border cases (contiguous and strided), and the CC's device
+   time is printed on the full-frame inputs (blobs, one component,
+   serpentine, dense).
 3. Runs ``pipeline.detect_step`` at the KITTI serving point (376 x 1242,
    pwc_v7 weights, flow and SGM at half resolution, two-window clusterer
    crop, default backends: windowed gather, CC and cluster-stats kernels)
@@ -80,6 +84,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
+sys.path.insert(1, os.path.join(ROOT, "tests"))  # dp_cc_cases: numpy only
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM non-tensor-core f32 rate
@@ -257,6 +262,7 @@ def check_sgm_kernels(dev, report):
     check_wta(sgm, sgm_cuda, noise, cn[0], cn[1], "random int8 volumes")
     log("sgm_wta bitwise equal to plain on a constant pair (ties over d) "
         "and on random int8 volumes")
+    check_horizontal_edges(dev, sgm, sgm_cuda)
 
     h, w, cl, cr, vf, vb, hf, hb = serving
     n = h * w
@@ -287,6 +293,37 @@ def check_sgm_kernels(dev, report):
             source="moving_object_detector_tpu_torch/csrc/sgm_v2.cu",
             replaces=replaces, max_abs_err=0.0, **timed(kern, plain),
             bound_ms=bms, bound_by=by, library_ms=None)
+
+
+# (p1, p2): the serving pair, P1 = P2 = 0, P2 = 127 (the int8 limit),
+# P1 > P2.
+DP_PENALTIES = ((10, 120), (0, 0), (10, 127), (40, 7))
+
+
+def check_horizontal_edges(dev, sgm, sgm_cuda) -> None:
+    """sgm_horizontal against its plain version, bitwise, at the serving
+    and odd shapes and the edge widths of tests/dp_cc_cases.py (below D,
+    not a multiple of 32 or 4), for each penalty pair."""
+    from dp_cc_cases import DP_CASES
+
+    shapes = [(H // 2, W // 2), (ODD_H, ODD_W)]
+    shapes += sorted({(h, w) for h, w, _, _ in DP_CASES})
+    rng = np.random.default_rng(6)
+    for h, w in shapes:
+        left = torch.tensor(rng.uniform(0, 1, (h, w)), dtype=torch.float32,
+                            device=dev)
+        right = torch.roll(left, -9, 1) + 0.02 * torch.randn(
+            h, w, device=dev)
+        cl, cr = sgm.census_transform(left), sgm.census_transform(right)
+        for p1, p2 in DP_PENALTIES:
+            out = sgm_cuda.horizontal_deltas(cl, cr, p1, p2)
+            ref = sgm.horizontal_deltas(cl, cr, p1, p2)
+            if not (torch.equal(out[0], ref[0])
+                    and torch.equal(out[1], ref[1])):
+                raise AssertionError(f"sgm_horizontal differs at {h}x{w} "
+                                     f"p1={p1} p2={p2}")
+    log(f"sgm_horizontal bitwise equal to plain at {shapes} for (p1, p2) "
+        f"in {list(DP_PENALTIES)}")
 
 
 def check_sgm_v1_kernels(dev, report):
@@ -562,6 +599,7 @@ def check_cc_kernel(dev, report):
                 dyn, z, dd, neighbor_distance=nd, stencil_radius=4)
             log(f"cc kernel at {h}x{w} ({name}): {median_ms(run):.4f} ms, "
                 f"on the device {device_ms(run):.4f} ms")
+    check_cc_tile_borders(dev, clustering, clustering_cuda)
     dyn, z, dd, nd, dyn_np, z_np = serving
     n = CROP_H * CROP_W
     # Edge tests this input needs: 24 forward offsets per dynamic pixel
@@ -581,6 +619,41 @@ def check_cc_kernel(dev, report):
                 stencil_radius=4)),
         bound_ms=bms, bound_by=by, library_ms=None)
     return serving
+
+
+def check_cc_tile_borders(dev, clustering, clustering_cuda) -> None:
+    """The CC kernel against the converged plain version on the tile-border
+    cases of tests/dp_cc_cases.py, contiguous and as strided views into a
+    larger frame, three runs each."""
+    from dp_cc_cases import CC_CASES
+
+    for name, (make, radius, stencil, _) in sorted(CC_CASES.items()):
+        dyn_np, z_np = make()
+        h, w = dyn_np.shape
+        dyn = torch.from_numpy(dyn_np).to(dev)
+        z = torch.from_numpy(z_np).to(dev)
+        nd = torch.tensor(radius, dtype=torch.int32, device=dev)
+        ref, iters = clustering.connected_components(
+            dyn, z, 0.15, neighbor_distance=nd, max_iters=PLAIN_CC_ITERS,
+            stencil_radius=stencil, return_iters=True)
+        if iters >= PLAIN_CC_ITERS:
+            raise AssertionError(f"plain CC did not converge on {name}")
+        big_dyn = torch.zeros((h + 7, w + 11), dtype=torch.bool, device=dev)
+        big_z = torch.zeros((h + 7, w + 11, 3), device=dev)
+        big_dyn[5:5 + h, 3:3 + w] = dyn
+        big_z[5:5 + h, 3:3 + w, 2] = z
+        for d, zz in ((dyn, z), (big_dyn[5:5 + h, 3:3 + w],
+                                 big_z[5:5 + h, 3:3 + w, 2])):
+            for run in range(3):
+                out = clustering_cuda.connected_components(
+                    d, zz, 0.15, neighbor_distance=nd,
+                    stencil_radius=stencil)
+                if not torch.equal(out, ref):
+                    raise AssertionError(
+                        f"cc differs from plain on tile case {name}, "
+                        f"strided {not d.is_contiguous()}, run {run}")
+    log(f"cc kernel equal to plain on {len(CC_CASES)} tile-border cases, "
+        f"contiguous and strided, 3 runs each")
 
 
 def check_stats_kernel(dev, report, cc_serving):

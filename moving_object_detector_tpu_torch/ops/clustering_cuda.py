@@ -4,8 +4,9 @@ Replaces the JAX package's Pallas kernel ``connected_components_pallas``
 (``ops/clustering_pallas.py``): depth-gated components of the dynamic
 pixels over the sign-consistent window offsets, each pixel labelled with
 the smallest flat index of its component, background H*W. For CUDA
-tensors the wrapper launches the kernels (a union-find in global memory,
-no host loop and no fetch from the device) and adds one to
+tensors the wrapper launches the kernels (a union-find per TILE_H x TILE_W
+tile in shared memory, then across the tiles' borders in global memory,
+then a flatten; no host loop and no fetch from the device) and adds one to
 ``LAUNCHES["cc"]``; for CPU tensors it runs the plain fixpoint
 ``clustering.connected_components``. A failed build or launch raises.
 """
@@ -20,6 +21,12 @@ from .. import _build
 from . import clustering
 
 LAUNCHES = {"cc": 0}
+# The kernels' tile (kTileH x kTileW in csrc/cc.cu): one block, a thread a
+# pixel, unites the edges inside it in shared memory.
+TILE_H, TILE_W = 16, 32
+# The border phase stages the tile and ``stencil_radius`` rows and columns
+# beyond it in shared memory (kMaxStencil in csrc/cc.cu).
+MAX_STENCIL = 32
 _typed = False
 
 
@@ -70,8 +77,9 @@ def connected_components(dynamic, depth, depth_diff, neighbor_distance=4,
     if dynamic.dim() != 2 or depth.shape != dynamic.shape:
         raise ValueError(f"shapes {tuple(dynamic.shape)} / "
                          f"{tuple(depth.shape)} must be equal (H, W)")
-    if stencil_radius < 0:
-        raise ValueError("stencil_radius must not be negative")
+    if not 0 <= stencil_radius <= MAX_STENCIL:
+        raise ValueError(f"stencil_radius {stencil_radius} outside the "
+                         f"kernel's [0, {MAX_STENCIL}]")
     dd = torch.as_tensor(depth_diff, dtype=torch.float32, device=dev)
     nd = torch.as_tensor(neighbor_distance, dtype=torch.int32, device=dev)
     if dd.numel() != 1 or nd.numel() != 1:

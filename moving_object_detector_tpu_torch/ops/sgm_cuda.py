@@ -21,6 +21,19 @@ D = 128
 LAUNCHES = {"sgm_vertical": 0, "sgm_horizontal": 0, "sgm_wta": 0}
 # The WTA kernel keeps one image row in shared memory, 4.5 words a pixel.
 MAX_WTA_WIDTH = 8192
+SMEM_PER_BLOCK = 232448  # bytes a block may have on an H100 (opt-in)
+
+
+def h_dp_smem_bytes(w: int) -> int:
+    """Shared memory of the horizontal DP kernel for a row of ``w`` pixels:
+    the left census line and the right one with a pad word every 32."""
+    return 4 * (w + (w - 1) + (w - 1) // 32 + 1)
+
+
+# The horizontal DP stages one image row in shared memory: the widest row
+# that fits (about 2 words a pixel), well above MAX_WTA_WIDTH.
+MAX_DP_WIDTH = max(w for w in range(8192, 32768)
+                   if h_dp_smem_bytes(w) <= SMEM_PER_BLOCK)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -82,6 +95,9 @@ def horizontal_deltas(cl: torch.Tensor, cr: torch.Tensor, p1: int, p2: int):
     """Left-right and right-left path deltas, each (H, W, 128) int8."""
     if cl.device.type == "cpu":
         return sgm.horizontal_deltas(cl, cr, p1, p2, D)
+    if cl.dim() == 2 and cl.shape[1] > MAX_DP_WIDTH:
+        raise ValueError(f"width {cl.shape[1]} exceeds the horizontal DP "
+                         f"kernel's {MAX_DP_WIDTH} (one row in shared memory)")
     return _dp("sgm_horizontal", cl, cr, p1, p2)
 
 

@@ -65,6 +65,8 @@ def _sources():
             if f.endswith((".py", ".cu", ".cuh")):
                 yield os.path.join(base, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    # Inputs chip_smoke.py takes from the tests.
+    yield os.path.join(ROOT, "tests", "dp_cc_cases.py")
 
 
 def test_no_source_names_jax():

@@ -25,6 +25,7 @@ from moving_object_detector_tpu_torch.ops import (
     sgm_cuda,
     sgm_v1_cuda,
 )
+from dp_cc_cases import CC_CASES, DP_CASES
 
 pytestmark = pytest.mark.gpu
 
@@ -91,6 +92,46 @@ def test_sgm_wta_edge_cases_bitwise_equal_plain(cuda, case):
     assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
     if constant:
         assert bool((out == 0).all())
+
+
+# (p1, p2): the serving pair, P1 = P2 = 0, P2 = 127 (the int8 limit),
+# P1 > P2.
+DP_PENALTIES = [(10, 120), (0, 0), (10, 127), (40, 7)]
+
+
+@pytest.mark.parametrize("p1,p2", DP_PENALTIES)
+@pytest.mark.parametrize("h,w", [(188, 621), (125, 350), (37, 171)]
+                         + sorted({(h, w) for h, w, _, _ in DP_CASES}))
+def test_sgm_horizontal_bitwise_equal_plain(cuda, h, w, p1, p2):
+    rng = np.random.default_rng(h * w + p1)
+    left = torch.tensor(rng.uniform(0, 1, (h, w)), dtype=torch.float32,
+                        device=cuda)
+    right = torch.roll(left, -9, 1) + 0.02 * torch.randn(h, w, device=cuda)
+    cl, cr = sgm.census_transform(left), sgm.census_transform(right)
+    before = sgm_cuda.LAUNCHES["sgm_horizontal"]
+    hf, hb = sgm_cuda.horizontal_deltas(cl, cr, p1, p2)
+    assert sgm_cuda.LAUNCHES["sgm_horizontal"] == before + 1
+    pf, pb = sgm.horizontal_deltas(cl, cr, p1, p2)
+    assert torch.equal(hf, pf) and torch.equal(hb, pb)
+
+
+def test_sgm_horizontal_widest_row_and_refusal(cuda):
+    """The widest row the kernel takes (its shared memory opted in above 48
+    KB): the forward deltas of the first 300 pixels depend on those pixels
+    alone, the backward ones of the last 173 on the last 300, so those
+    agree with the plain version on the slices. One pixel more raises."""
+    w = sgm_cuda.MAX_DP_WIDTH
+    cl, cr = torch.randint(0, 1 << 24, (2, 2, w), dtype=torch.int32,
+                           device=cuda)
+    hf, hb = sgm_cuda.horizontal_deltas(cl, cr, 10, 120)
+    torch.cuda.synchronize()
+    pf, _ = sgm.horizontal_deltas(cl[:, :300], cr[:, :300], 10, 120)
+    _, pb = sgm.horizontal_deltas(cl[:, -300:], cr[:, -300:], 10, 120)
+    assert torch.equal(hf[:, :300], pf)
+    assert torch.equal(hb[:, -173:], pb[:, 127:])
+    wide = torch.zeros((1, w + 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match=str(w)):
+        sgm_cuda.horizontal_deltas(wide, wide, 10, 120)
 
 
 def test_sgm_wta_takes_arbitrary_int8_volumes_and_refuses_wide_rows(cuda):
@@ -335,6 +376,48 @@ def test_cc_kernel_reads_strided_views(cuda):
         dyn_t[sl].contiguous(), pts[sl][..., 2].contiguous(), 0.15,
         neighbor_distance=4, max_iters=4096)
     assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("case", sorted(CC_CASES))
+def test_cc_kernel_tile_border_cases_equal_converged_plain(cuda, case):
+    """The cases of tests/test_torch_dp_cc_redesign.py (edges exactly on
+    the tiles' borders and corners, a NaN bridge, radius 0, above the
+    stencil and beyond the local phase's reach, partial tiles, a
+    serpentine), contiguous and as strided views into a larger frame; three
+    runs each."""
+    make, radius, stencil, _ = CC_CASES[case]
+    dyn, depth = make()
+    dyn_t = torch.from_numpy(dyn).to(cuda)
+    z_t = torch.from_numpy(depth).to(cuda)
+    nd = torch.tensor(radius, dtype=torch.int32, device=cuda)
+    ref, iters = clustering.connected_components(
+        dyn_t, z_t, 0.15, neighbor_distance=nd, max_iters=4096,
+        stencil_radius=stencil, return_iters=True)
+    assert iters < 4096
+    h, w = dyn.shape
+    big_dyn = torch.zeros((h + 7, w + 11), dtype=torch.bool, device=cuda)
+    big_z = torch.zeros((h + 7, w + 11, 3), device=cuda)
+    big_dyn[5:5 + h, 3:3 + w] = dyn_t
+    big_z[5:5 + h, 3:3 + w, 2] = z_t
+    views = (dyn_t, z_t), (big_dyn[5:5 + h, 3:3 + w],
+                           big_z[5:5 + h, 3:3 + w, 2])
+    for d, z in views:
+        for _ in range(3):
+            out = clustering_cuda.connected_components(
+                d, z, 0.15, neighbor_distance=nd, stencil_radius=stencil)
+            assert torch.equal(out, ref), case
+
+
+def test_cc_kernel_refuses_a_stencil_beyond_its_halo(cuda):
+    dyn = torch.ones((20, 40), dtype=torch.bool, device=cuda)
+    z = torch.ones((20, 40), device=cuda)
+    limit = clustering_cuda.MAX_STENCIL
+    out = clustering_cuda.connected_components(dyn, z, 0.1,
+                                               neighbor_distance=limit)
+    assert bool((out == 0).all())
+    with pytest.raises(ValueError, match=str(limit)):
+        clustering_cuda.connected_components(dyn, z, 0.1,
+                                             neighbor_distance=limit + 1)
 
 
 @pytest.mark.parametrize("h,w,cap", [(192, 512, 16), (125, 350, 32),
