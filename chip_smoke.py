@@ -9,7 +9,7 @@
    disparity bitwise (v2; the WTA for every combination of ``subpixel``,
    ``lr_check`` and ``uniqueness_ratio``, also at a width below 128, at
    widths that are and are not a multiple of 4, on a constant pair and on
-   random int8 volumes), the v1 census, cost volume, aggregated total
+   random int8 volumes), the v1 census pair, cost volume, aggregated total
    and disparity bitwise, the correlation within 1e-5 for r = 1..4 and
    B = 1, 2 with two runs bit-identical, the windowed gather equal with
    NaN positions equal, the connected components exactly on six kinds of
@@ -18,11 +18,15 @@
    construct with exact NaN masks and values within 1e-5. Prints each
    kernel's time and its plain version's time (CUDA events, median after
    warm-up), the correlation's per pyramid level and at its smallest
-   case (the launch floor). The horizontal DP is also held at the edge
-   widths of ``tests/dp_cc_cases.py`` for four (P1, P2) pairs, the CC on
-   its tile-border cases (contiguous and strided), and the CC's device
-   time is printed on the full-frame inputs (blobs, one component,
-   serpentine, dense).
+   case (the launch floor). Both SGM DPs are also held at the edge shapes
+   of ``tests/dp_cc_cases.py`` for five (P1, P2) pairs, the census pair on
+   its edge cases (images smaller than the halo, partial tiles, ties, NaN
+   and +-inf, four other windows), the SGM kernels past their old width
+   ceilings (the v2 WTA at 8,193, 9,000 and past its shared-memory limit,
+   the v1 WTA at 4,097, 19,000 and past its limit, the horizontal DP past
+   its limit), the CC on its tile-border cases (contiguous and strided),
+   and the CC's device time is printed on the full-frame inputs (blobs,
+   one component, serpentine, dense).
 3. Runs ``pipeline.detect_step`` at the KITTI serving point (376 x 1242,
    pwc_v7 weights, flow and SGM at half resolution, two-window clusterer
    crop, default backends: windowed gather, CC and cluster-stats kernels)
@@ -30,8 +34,8 @@
    background in depth strips and a pasted patch moving 12 px a frame.
    Checks shapes, finiteness, the known strip disparities and the patch's
    flow, and that every kernel of this path launched on it: a frame, the
-   census kernel twice, each SGM v2 kernel once, the correlation four
-   times, the plain census never. Prints
+   census kernel once (both views), each SGM v2 kernel once, the
+   correlation four times, the plain census never. Prints
    ms/frame, pairs/s and per-stage ms.
 4. Runs the same frames with the gather, CC and stats in their plain
    forms and requires identical detections, label images and overflow;
@@ -49,9 +53,9 @@
 7. Runs the same 12 frames through ``io.runner.PipelineRunner`` (feeder
    thread, frame ring, pinned upload, harvest a frame behind) with
    ``sgm.backend="pallas_v1"``: each of the four v1 kernels must launch
-   every frame (the census twice), no v2 SGM kernel at all, every
-   disparity must equal the v2 path's bitwise and the detections the
-   default path's. Prints ms/frame through the runner beside the
+   every frame (the census once, the aggregation twice), no v2 SGM kernel
+   at all, every disparity must equal the v2 path's bitwise and the
+   detections the default path's. Prints ms/frame through the runner beside the
    hand-driven loop's, and the runner's report.
 8. Runs the CLI in process (``run.main``) on the same frames written to a
    temporary ``.npz``: one JSON line per frame, the moving patch among the
@@ -92,7 +96,7 @@ PEAK_F32_OPS_PER_S = 67e12  # H100 SXM non-tensor-core f32 rate
 # 4 min, 2 add, 1 sub; share of the warp min and neighbour shuffles).
 OPS_PER_DP_UPDATE = 12
 OPS_PER_WTA_CANDIDATE = 8  # 4 adds, cost, pack, 2 min (left + right view)
-OPS_PER_CENSUS_NEIGHBOUR = 3  # bounds test, compare, or
+OPS_PER_CENSUS_NEIGHBOUR = 2  # compare, or
 OPS_PER_COST = 3  # xor, popc, select
 FX, BASELINE = 721.5, 0.54
 
@@ -262,7 +266,8 @@ def check_sgm_kernels(dev, report):
     check_wta(sgm, sgm_cuda, noise, cn[0], cn[1], "random int8 volumes")
     log("sgm_wta bitwise equal to plain on a constant pair (ties over d) "
         "and on random int8 volumes")
-    check_horizontal_edges(dev, sgm, sgm_cuda)
+    check_dp_edges(dev, sgm, sgm_cuda)
+    check_wide_rows(dev)
 
     h, w, cl, cr, vf, vb, hf, hb = serving
     n = h * w
@@ -293,21 +298,47 @@ def check_sgm_kernels(dev, report):
             source="moving_object_detector_tpu_torch/csrc/sgm_v2.cu",
             replaces=replaces, max_abs_err=0.0, **timed(kern, plain),
             bound_ms=bms, bound_by=by, library_ms=None)
+    time_vertical_strips(dev, sgm, sgm_cuda, cl, cr)
+
+
+def time_vertical_strips(dev, sgm, sgm_cuda, cl, cr) -> None:
+    """The vertical DP's device ms at the serving shape with strips of 4,
+    8 and 16 columns a block and the card's own (``sgm_cuda.v_strip``),
+    each first held bitwise against the plain version, in two rounds of
+    opposite order."""
+    w = cl.shape[1]
+    card = sgm_cuda.v_strip(
+        w, torch.cuda.get_device_properties(dev).multi_processor_count)
+    strips = sorted({4, 8, 16, card})
+    runs = {s: (lambda s=s: sgm_cuda._dp("sgm_vertical", cl, cr, 10, 120,
+                                         strip=s)) for s in strips}
+    ref = sgm.vertical_deltas(cl, cr, 10, 120)
+    for s, run in runs.items():
+        if not all(torch.equal(a, b) for a, b in zip(run(), ref)):
+            raise AssertionError(f"sgm_vertical differs with strip {s}")
+    times = {s: [] for s in strips}
+    for order in (strips, strips[::-1]):
+        for s in order:
+            times[s].append(device_ms(runs[s]))
+    log(f"sgm_vertical device ms by strip (card strip {card}), two rounds: "
+        + json.dumps(times))
 
 
 # (p1, p2): the serving pair, P1 = P2 = 0, P2 = 127 (the int8 limit),
-# P1 > P2.
-DP_PENALTIES = ((10, 120), (0, 0), (10, 127), (40, 7))
+# P1 > P2, P1 above the 160 at which the vertical DP clamps it.
+DP_PENALTIES = ((10, 120), (0, 0), (10, 127), (40, 7), (500, 127))
 
 
-def check_horizontal_edges(dev, sgm, sgm_cuda) -> None:
-    """sgm_horizontal against its plain version, bitwise, at the serving
-    and odd shapes and the edge widths of tests/dp_cc_cases.py (below D,
-    not a multiple of 32 or 4), for each penalty pair."""
-    from dp_cc_cases import DP_CASES
+def check_dp_edges(dev, sgm, sgm_cuda) -> None:
+    """sgm_horizontal and sgm_vertical against their plain versions,
+    bitwise, at the serving and odd shapes and the edge shapes of
+    tests/dp_cc_cases.py (widths below D, not a multiple of 32, 4 or the
+    vertical strip; heights at and around the vertical row block), for
+    each penalty pair."""
+    from dp_cc_cases import DP_CASES, VDP_CASES
 
     shapes = [(H // 2, W // 2), (ODD_H, ODD_W)]
-    shapes += sorted({(h, w) for h, w, _, _ in DP_CASES})
+    shapes += sorted({(h, w) for h, w, _, _ in DP_CASES + VDP_CASES})
     rng = np.random.default_rng(6)
     for h, w in shapes:
         left = torch.tensor(rng.uniform(0, 1, (h, w)), dtype=torch.float32,
@@ -316,14 +347,60 @@ def check_horizontal_edges(dev, sgm, sgm_cuda) -> None:
             h, w, device=dev)
         cl, cr = sgm.census_transform(left), sgm.census_transform(right)
         for p1, p2 in DP_PENALTIES:
-            out = sgm_cuda.horizontal_deltas(cl, cr, p1, p2)
-            ref = sgm.horizontal_deltas(cl, cr, p1, p2)
-            if not (torch.equal(out[0], ref[0])
-                    and torch.equal(out[1], ref[1])):
-                raise AssertionError(f"sgm_horizontal differs at {h}x{w} "
-                                     f"p1={p1} p2={p2}")
-    log(f"sgm_horizontal bitwise equal to plain at {shapes} for (p1, p2) "
-        f"in {list(DP_PENALTIES)}")
+            for name in ("horizontal", "vertical"):
+                out = getattr(sgm_cuda, f"{name}_deltas")(cl, cr, p1, p2)
+                ref = getattr(sgm, f"{name}_deltas")(cl, cr, p1, p2)
+                if not (torch.equal(out[0], ref[0])
+                        and torch.equal(out[1], ref[1])):
+                    raise AssertionError(f"sgm_{name} differs at {h}x{w} "
+                                         f"p1={p1} p2={p2}")
+    log(f"sgm_horizontal and sgm_vertical bitwise equal to plain at "
+        f"{shapes} for (p1, p2) in {list(DP_PENALTIES)}")
+
+
+def check_wide_rows(dev) -> None:
+    """The SGM kernels past their old width ceilings, against the plain
+    versions: the v2 WTA at 8,193, 9,000 and its widest staged row
+    (shared memory, opted in) and past its shared-memory limit (global
+    memory), the v1 WTA at 4,097, 19,000, its widest staged row and past
+    its limit, the horizontal DP past its limit (on the slices whose
+    deltas depend on the slice alone)."""
+    from moving_object_detector_tpu_torch.ops import sgm, sgm_cuda, \
+        sgm_v1_cuda
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    wta_widths = (8193, 9000, sgm_cuda.WTA_SMEM_WIDTH,
+                  sgm_cuda.WTA_SMEM_WIDTH + 1)
+    v1_widths = (4097, 19000, sgm_v1_cuda.WTA_SMEM_WIDTH,
+                 sgm_v1_cuda.WTA_SMEM_WIDTH + 1)
+    for w in wta_widths:
+        vols = [torch.randint(-128, 128, (2, w, sgm_cuda.D), device=dev,
+                              generator=g, dtype=torch.int8)
+                for _ in range(4)]
+        cl, cr = torch.randint(0, 1 << 24, (2, 2, w), device=dev,
+                               generator=g, dtype=torch.int32)
+        check_wta(sgm, sgm_cuda, vols, cl, cr, f"2x{w} random int8")
+    for w in v1_widths:
+        total = torch.randint(0, 600, (2, w, sgm_v1_cuda.D), device=dev,
+                              generator=g, dtype=torch.int16)
+        for subpixel, lr in ((True, True), (False, True), (True, False)):
+            out = sgm_v1_cuda.wta(total, subpixel, lr, 1.0)
+            ref = sgm.wta_from_total(total, subpixel, lr, 1.0)
+            if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
+                raise AssertionError(f"sgm1_wta differs at 2x{w} "
+                                     f"subpixel={subpixel} lr={lr}")
+    w = sgm_cuda.DP_SMEM_WIDTH + 1
+    cl, cr = torch.randint(0, 1 << 24, (2, 2, w), device=dev, generator=g,
+                           dtype=torch.int32)
+    hf, hb = sgm_cuda.horizontal_deltas(cl, cr, 10, 120)
+    pf, _ = sgm.horizontal_deltas(cl[:, :300], cr[:, :300], 10, 120)
+    _, pb = sgm.horizontal_deltas(cl[:, -300:], cr[:, -300:], 10, 120)
+    if not (torch.equal(hf[:, :300], pf) and torch.equal(hb[:, -173:],
+                                                          pb[:, 127:])):
+        raise AssertionError(f"sgm_horizontal differs at width {w}")
+    log(f"wide rows bitwise equal to plain: sgm_wta at {wta_widths} "
+        f"({len(WTA_FLAGS)} flag combinations), sgm1_wta at {v1_widths}, "
+        f"sgm_horizontal at {w} (slices)")
 
 
 def check_sgm_v1_kernels(dev, report):
@@ -338,7 +415,7 @@ def check_sgm_v1_kernels(dev, report):
                             device=dev)
         right = torch.roll(left, -9, 1) + 0.02 * torch.randn(
             h, w, device=dev)
-        cl, cr = sgm_v1_cuda.census(left), sgm_v1_cuda.census(right)
+        cl, cr = sgm_v1_cuda.census_pair(left, right)
         if not (torch.equal(cl, sgm.census_transform(left))
                 and torch.equal(cr, sgm.census_transform(right))):
             raise AssertionError(f"sgm1_census differs at {h}x{w}")
@@ -361,9 +438,10 @@ def check_sgm_v1_kernels(dev, report):
         log(f"sgm v1 kernels bitwise equal to plain at {h}x{w} "
             f"({n_valid} of {h * w} pixels valid)")
         if serving is None:
-            serving = (h, w, left, cl, cr, cost, total)
+            serving = (h, w, left, right, cl, cr, cost, total)
+    check_census_cases(dev, sgm, sgm_v1_cuda)
 
-    h, w, left, cl, cr, cost, total = serving
+    h, w, left, right, cl, cr, cost, total = serving
     n = h * w
     scratch = torch.empty_like(total)
     for vertical in (False, True):  # each launch alone, storing
@@ -373,10 +451,11 @@ def check_sgm_v1_kernels(dev, report):
             f"{'columns' if vertical else 'rows'} alone at {h}x{w}: "
             f"{median_ms(one):.4f} ms, on the device {device_ms(one):.4f} ms")
     timings = {
-        "sgm1_census": (
-            lambda: sgm_v1_cuda.census(left),
-            lambda: sgm.census_transform(left),
-            bound_ms(2 * n * 4, n * 24 * OPS_PER_CENSUS_NEIGHBOUR),
+        "sgm1_census": (  # both views of the pair, one launch
+            lambda: sgm_v1_cuda.census_pair(left, right),
+            lambda: (sgm.census_transform(left),
+                     sgm.census_transform(right)),
+            bound_ms(2 * 2 * n * 4, 2 * n * 24 * OPS_PER_CENSUS_NEIGHBOUR),
             "ops/sgm_pallas.py:260 in census_cost_volume_pallas :226 "
             "(_census_kernel :161)"),
         "sgm1_cost": (
@@ -404,6 +483,25 @@ def check_sgm_v1_kernels(dev, report):
             source="moving_object_detector_tpu_torch/csrc/sgm_v1.cu",
             replaces=replaces, max_abs_err=0.0, **timed(kern, plain),
             bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def check_census_cases(dev, sgm, sgm_v1_cuda) -> None:
+    """census_pair against the plain transform and against the kernel on
+    each view alone, bitwise, on the cases of tests/dp_cc_cases.py (images
+    smaller than the halo, partial tiles, ties, NaN and +-inf pixels,
+    windows 3 x 3, 3 x 9, 11 x 3, 1 x 33)."""
+    from dp_cc_cases import CENSUS_CASES, census_pair
+
+    for case, (_, _, window, _) in sorted(CENSUS_CASES.items()):
+        left, right = (torch.from_numpy(x).to(dev)
+                       for x in census_pair(case))
+        cl, cr = sgm_v1_cuda.census_pair(left, right, window)
+        for out, img in ((cl, left), (cr, right)):
+            if not (torch.equal(out, sgm.census_transform(img, window))
+                    and torch.equal(out, sgm_v1_cuda.census(img, window))):
+                raise AssertionError(f"sgm1_census differs on {case}")
+    log(f"census_pair bitwise equal to plain and to one view at a time on "
+        f"{len(CENSUS_CASES)} edge cases")
 
 
 CORR_LEVELS = ((196, 3, 10), (128, 6, 20), (96, 12, 40), (64, 24, 80))
@@ -1051,7 +1149,7 @@ def run_checks_and_paths(dev, report) -> None:
     for name in V1_ONLY_KERNELS:
         if launches.pop(name) != 0:
             raise AssertionError(f"the default path launched {name}")
-    per_frame = {"sgm1_census": 2, "sgm_vertical": 1, "sgm_horizontal": 1,
+    per_frame = {"sgm1_census": 1, "sgm_vertical": 1, "sgm_horizontal": 1,
                  "sgm_wta": 1, "corr": len(CORR_LEVELS)}
     for name, k in per_frame.items():
         if launches[name] != k * len(frames):
@@ -1241,7 +1339,7 @@ def run_v1_runner_path(model, config, stereo, frames, outs, loop_ms, dev,
     _, loop_b = run_frames(model, v1, stereo, frames, dev)
 
     log("launches on the v1 runner path: " + json.dumps(counts))
-    expected = {"sgm1_census": 2 * n, "sgm1_cost": n, "sgm1_aggregate": 2 * n,
+    expected = {"sgm1_census": n, "sgm1_cost": n, "sgm1_aggregate": 2 * n,
                 "sgm1_wta": n}
     for name, want in expected.items():
         if counts[name] != want:

@@ -236,6 +236,8 @@ class SGMConfig:
     def __post_init__(self):
         if self.backend not in ("auto", "pallas", "pallas_v1", "xla"):
             raise ValueError(f"unknown SGM backend {self.backend!r}")
+        if self.p1 < 0:  # the vertical DP kernel adds 16-bit costs >= 0
+            raise ValueError(f"P1={self.p1}: path costs need P1 >= 0")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -104,7 +104,9 @@ def _dp_deltas(cost: torch.Tensor, p1: int, p2: int, reverse: bool,
     return out
 
 
-def _check_p2(p2: int):
+def _check_penalties(p1: int, p2: int):
+    if p1 < 0:
+        raise ValueError(f"P1={p1}: path costs need P1 >= 0")
     if not 0 <= p2 <= 127:
         raise ValueError(f"P2={p2}: int8 path deltas need 0 <= P2 <= 127")
 
@@ -113,7 +115,7 @@ def vertical_deltas(census_l, census_r, p1: int, p2: int,
                     max_disparity: int = 128):
     """Plain version of the vertical DP kernel: (vf, vb), each (H, W, D)
     int8, for the top-down and bottom-up directions."""
-    _check_p2(p2)
+    _check_penalties(p1, p2)
     cost = hamming_cost(census_l, census_r, max_disparity)
     return (_dp_deltas(cost, p1, p2, False), _dp_deltas(cost, p1, p2, True))
 
@@ -122,7 +124,7 @@ def horizontal_deltas(census_l, census_r, p1: int, p2: int,
                       max_disparity: int = 128):
     """Plain version of the horizontal DP kernel: (hf, hb), each (H, W, D)
     int8, for the left-right and right-left directions."""
-    _check_p2(p2)
+    _check_penalties(p1, p2)
     cost = hamming_cost(census_l, census_r, max_disparity).transpose(0, 1)
     hf = _dp_deltas(cost, p1, p2, False).transpose(0, 1)
     hb = _dp_deltas(cost, p1, p2, True).transpose(0, 1)
@@ -286,11 +288,13 @@ def sgm_disparity_raw(left: torch.Tensor, right: torch.Tensor,
             "'pallas' (v2) backends only; the v1 WTA kernel does not "
             "implement it")
     # Both kernel generations take their census images from the census
-    # kernel; the plain form keeps the plain transform.
-    census = (sgm_v1_cuda.census if backend.startswith("pallas")
-              else census_transform)
-    cl = census(left, window)
-    cr = census(right, window)
+    # kernel, both views in one launch; the plain form keeps the plain
+    # transform.
+    if backend.startswith("pallas"):
+        cl, cr = sgm_v1_cuda.census_pair(left, right, window)
+    else:
+        cl, cr = census_transform(left, window), census_transform(right,
+                                                                  window)
     if backend == "pallas_v1":
         # Cost, aggregation and WTA each on its kernel: the stored int8
         # volume is what sets v1 apart from v2.

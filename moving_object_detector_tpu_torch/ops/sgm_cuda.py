@@ -19,9 +19,21 @@ from . import sgm
 
 D = 128
 LAUNCHES = {"sgm_vertical": 0, "sgm_horizontal": 0, "sgm_wta": 0}
-# The WTA kernel keeps one image row in shared memory, 4.5 words a pixel.
-MAX_WTA_WIDTH = 8192
 SMEM_PER_BLOCK = 232448  # bytes a block may have on an H100 (opt-in)
+# The vertical DP: image rows a staged block holds, and the most columns
+# a block owns (a warp each).
+V_ROWS = 32
+V_MAX_STRIP = 32
+
+
+def v_strip(w: int, sms: int) -> int:
+    """Columns a block of the vertical DP owns for a row of ``w`` pixels
+    on a card of ``sms`` SMs: the fewest that still let its 2 ceil(w /
+    strip) blocks fit the SMs once, so that every SM scans about as many
+    columns, at most V_MAX_STRIP."""
+    return max(1, min(V_MAX_STRIP, -(-2 * w // sms)))
+
+
 
 
 def h_dp_smem_bytes(w: int) -> int:
@@ -30,10 +42,26 @@ def h_dp_smem_bytes(w: int) -> int:
     return 4 * (w + (w - 1) + (w - 1) // 32 + 1)
 
 
-# The horizontal DP stages one image row in shared memory: the widest row
-# that fits (about 2 words a pixel), well above MAX_WTA_WIDTH.
-MAX_DP_WIDTH = max(w for w in range(8192, 32768)
-                   if h_dp_smem_bytes(w) <= SMEM_PER_BLOCK)
+def wta_smem_bytes(w: int) -> int:
+    """Shared memory of the WTA kernel for a row of ``w`` pixels: the right
+    census line and the right view's minimum with 4 pad words every 16,
+    the left census line and the disparity."""
+    padded = (w - 1) + ((w - 1) // 16) * 4 + 1
+    return 4 * (2 * padded + 2 * w)
+
+
+def _widest(smem_bytes) -> int:
+    w = 1
+    while smem_bytes(w + 1) <= SMEM_PER_BLOCK:
+        w += 1
+    return w
+
+
+# The widest rows whose lines a block stages in shared memory. Wider rows
+# take each kernel's second instantiation, which reads them from global
+# memory: no width is refused.
+DP_SMEM_WIDTH = _widest(h_dp_smem_bytes)
+WTA_SMEM_WIDTH = _widest(wta_smem_bytes)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,12 +73,11 @@ def _lib():
     global _typed
     lib = _build.load("sgm_v2")
     if not _typed:
-        for name in ("sgm_vertical", "sgm_horizontal"):
-            fn = getattr(lib, name)
-            fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
-            fn.restype = _I
-        lib.sgm_wta.argtypes = [_P] * 7 + [_I, _I, _I, _I, _F, _F, _P]
-        lib.sgm_wta.restype = _I
+        lib.sgm_vertical.argtypes = [_P] * 4 + [_I] * 5 + [_P]
+        lib.sgm_horizontal.argtypes = [_P] * 4 + [_I] * 4 + [_P]
+        lib.sgm_wta.argtypes = [_P] * 8 + [_I, _I, _I, _I, _F, _F, _P]
+        for name in LAUNCHES:
+            getattr(lib, name).restype = _I
         _typed = True
     return lib
 
@@ -70,15 +97,20 @@ def _check_census(cl: torch.Tensor, cr: torch.Tensor):
     return cl.contiguous(), cr.contiguous()
 
 
-def _dp(name: str, cl, cr, p1: int, p2: int):
-    sgm._check_p2(p2)
+def _dp(name: str, cl, cr, p1: int, p2: int, strip: int = 0):
+    """Launches one DP kernel; ``strip`` > 0 overrides the vertical DP's
+    strip (``v_strip``), for timing it at other strips."""
+    sgm._check_penalties(p1, p2)
     cl, cr = _check_census(cl, cr)
     h, w = cl.shape
     out_f = torch.empty((h, w, D), dtype=torch.int8, device=cl.device)
     out_b = torch.empty_like(out_f)
-    rc = getattr(_lib(), name)(cl.data_ptr(), cr.data_ptr(),
-                               out_f.data_ptr(), out_b.data_ptr(),
-                               h, w, int(p1), int(p2), _stream())
+    args = [cl.data_ptr(), cr.data_ptr(), out_f.data_ptr(), out_b.data_ptr(),
+            h, w, int(p1), int(p2)]
+    if name == "sgm_vertical":
+        sms = torch.cuda.get_device_properties(cl.device).multi_processor_count
+        args.append(strip or v_strip(w, sms))
+    rc = getattr(_lib(), name)(*args, _stream())
     _build.check(rc, name)
     LAUNCHES[name] += 1
     return out_f, out_b
@@ -95,9 +127,6 @@ def horizontal_deltas(cl: torch.Tensor, cr: torch.Tensor, p1: int, p2: int):
     """Left-right and right-left path deltas, each (H, W, 128) int8."""
     if cl.device.type == "cpu":
         return sgm.horizontal_deltas(cl, cr, p1, p2, D)
-    if cl.dim() == 2 and cl.shape[1] > MAX_DP_WIDTH:
-        raise ValueError(f"width {cl.shape[1]} exceeds the horizontal DP "
-                         f"kernel's {MAX_DP_WIDTH} (one row in shared memory)")
     return _dp("sgm_horizontal", cl, cr, p1, p2)
 
 
@@ -111,9 +140,6 @@ def wta(hf, hb, vf, vb, cl, cr, subpixel: bool = True, lr_check: bool = True,
                                   uniqueness_ratio)
     cl, cr = _check_census(cl, cr)
     h, w = cl.shape
-    if w > MAX_WTA_WIDTH:
-        raise ValueError(f"width {w} exceeds the WTA kernel's "
-                         f"{MAX_WTA_WIDTH} (one row in shared memory)")
     vols = []
     for v in (hf, hb, vf, vb):
         if v.device != cl.device or v.dtype != torch.int8 or \
@@ -126,10 +152,13 @@ def wta(hf, hb, vf, vb, cl, cr, subpixel: bool = True, lr_check: bool = True,
                              "kernel loads 16 bytes a lane)")
         vols.append(v)
     out = torch.empty((h, w), dtype=torch.float32, device=cl.device)
+    scratch = (torch.empty((h, w), dtype=torch.int32, device=cl.device)
+               if w > WTA_SMEM_WIDTH else None)
     rc = _lib().sgm_wta(
         *(v.data_ptr() for v in vols), cl.data_ptr(), cr.data_ptr(),
-        out.data_ptr(), h, w, int(bool(subpixel)), int(bool(lr_check)),
-        float(lr_max_diff), float(uniqueness_ratio), _stream())
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(), h,
+        w, int(bool(subpixel)), int(bool(lr_check)), float(lr_max_diff),
+        float(uniqueness_ratio), _stream())
     _build.check(rc, "sgm_wta")
     LAUNCHES["sgm_wta"] += 1
     return out

@@ -20,12 +20,18 @@ import ctypes
 import torch
 
 from .. import _build
-from . import sgm
+from . import sgm, sgm_cuda
 
 D = 128
 LAUNCHES = {"sgm1_census": 0, "sgm1_cost": 0, "sgm1_aggregate": 0,
             "sgm1_wta": 0}
-MAX_WTA_WIDTH = 48 * 1024 // 12  # three words of static-limit shared memory
+# The census kernel's tile, in pixels: a warp a row, 4 adjacent pixels a
+# lane.
+CENSUS_TILE_H = 8
+CENSUS_TILE_W = 128
+# The widest row whose two words a pixel the WTA keeps in a block's shared
+# memory; wider rows keep them in global memory.
+WTA_SMEM_WIDTH = sgm_cuda.SMEM_PER_BLOCK // 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,10 +43,10 @@ def _lib():
     global _typed
     lib = _build.load("sgm_v1")
     if not _typed:
-        lib.sgm1_census.argtypes = [_P, _P, _I, _I, _I, _I, _P]
+        lib.sgm1_census.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
         lib.sgm1_cost.argtypes = [_P, _P, _P, _I, _I, _P]
         lib.sgm1_aggregate.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _P]
-        lib.sgm1_wta.argtypes = [_P, _P, _I, _I, _I, _I, _F, _P]
+        lib.sgm1_wta.argtypes = [_P, _P, _P, _I, _I, _I, _I, _F, _P]
         for name in LAUNCHES:
             getattr(lib, name).restype = _I
         _typed = True
@@ -65,27 +71,55 @@ def _check_volume(vol: torch.Tensor, dtype, what: str) -> torch.Tensor:
     return vol.contiguous()
 
 
-def census(img: torch.Tensor, window=(5, 5)) -> torch.Tensor:
-    """Census transform, (H, W) -> (H, W) int32, bitwise equal to
-    ``sgm.census_transform``. Both kernel generations ("pallas" and
-    "pallas_v1" in ``sgm.sgm_disparity_raw``) take their census images
-    from here."""
-    if img.device.type == "cpu":
-        return sgm.census_transform(img, window)
+def _census(images, window) -> list:
+    """One launch of the census kernel over one or two (H, W) images of
+    one size on one CUDA device."""
     wh, ww = window
     if wh % 2 == 0 or ww % 2 == 0 or wh * ww - 1 > 32:
         raise ValueError(f"census window {window}: both sides odd and at "
                          "most 32 neighbours (the signature is int32)")
-    if img.dim() != 2:
-        raise ValueError(f"census input must be (H, W), got "
-                         f"{tuple(img.shape)}")
-    img = img.float().contiguous()
-    h, w = img.shape
-    out = torch.empty((h, w), dtype=torch.int32, device=img.device)
-    _launched(_lib().sgm1_census(img.data_ptr(), out.data_ptr(), h, w,
-                                 wh // 2, ww // 2, _stream()),
-              "sgm1_census")
-    return out
+    first = images[0]
+    for img in images:
+        if img.device != first.device or img.device.type != "cuda":
+            raise ValueError("census images must be CUDA tensors on one "
+                             "device")
+        if img.dim() != 2 or img.shape != first.shape:
+            raise ValueError(f"census inputs must be (H, W) of one size, "
+                             f"got {[tuple(i.shape) for i in images]}")
+    images = [img.float().contiguous() for img in images]
+    outs = [torch.empty(img.shape, dtype=torch.int32, device=img.device)
+            for img in images]
+    h, w = images[0].shape
+    last = len(images) - 1
+    _launched(_lib().sgm1_census(
+        images[0].data_ptr(), images[last].data_ptr(), outs[0].data_ptr(),
+        outs[last].data_ptr(), len(images), h, w, wh // 2, ww // 2,
+        _stream()), "sgm1_census")
+    return outs
+
+
+def census(img: torch.Tensor, window=(5, 5)) -> torch.Tensor:
+    """Census transform, (H, W) -> (H, W) int32, bitwise equal to
+    ``sgm.census_transform``: the kernel of ``census_pair`` on one
+    image."""
+    if img.device.type == "cpu":
+        return sgm.census_transform(img, window)
+    return _census([img], window)[0]
+
+
+def census_pair(left: torch.Tensor, right: torch.Tensor, window=(5, 5)):
+    """Census transforms of both views of a stereo pair, (cl, cr), in one
+    launch; each bitwise equal to ``sgm.census_transform``. Both kernel
+    generations ("pallas" and "pallas_v1" in ``sgm.sgm_disparity_raw``)
+    take their census images from here."""
+    if left.device != right.device:
+        raise ValueError(f"census_pair: views on {left.device} and "
+                         f"{right.device}")
+    if left.device.type == "cpu":
+        return (sgm.census_transform(left, window),
+                sgm.census_transform(right, window))
+    cl, cr = _census([left, right], window)
+    return cl, cr
 
 
 def cost_volume(cl: torch.Tensor, cr: torch.Tensor) -> torch.Tensor:
@@ -146,11 +180,12 @@ def wta(total: torch.Tensor, subpixel: bool = True, lr_check: bool = True,
         return sgm.wta_from_total(total, subpixel, lr_check, lr_max_diff)
     total = _check_volume(total, torch.int16, "the aggregated total")
     h, w = total.shape[:2]
-    if w > MAX_WTA_WIDTH:
-        raise ValueError(f"width {w} exceeds the WTA kernel's "
-                         f"{MAX_WTA_WIDTH} (one row in shared memory)")
     out = torch.empty((h, w), dtype=torch.float32, device=total.device)
-    _launched(_lib().sgm1_wta(total.data_ptr(), out.data_ptr(), h, w,
-                              int(bool(subpixel)), int(bool(lr_check)),
-                              float(lr_max_diff), _stream()), "sgm1_wta")
+    scratch = (torch.empty((h, w), dtype=torch.int32, device=total.device)
+               if w > WTA_SMEM_WIDTH else None)
+    _launched(_lib().sgm1_wta(
+        total.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), h, w,
+        int(bool(subpixel)), int(bool(lr_check)), float(lr_max_diff),
+        _stream()), "sgm1_wta")
     return out

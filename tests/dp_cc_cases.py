@@ -1,12 +1,18 @@
-"""Inputs on which the tiled connected-components kernel and the staged
-horizontal SGM DP could go wrong, shared by the CPU tests against the JAX
-package (test_torch_dp_cc_redesign.py) and the card tests against the
-plain versions (test_torch_kernels_gpu.py). numpy only: no JAX.
+"""Inputs on which the tiled connected-components kernel, the staged
+horizontal and vertical SGM DPs and the tiled census kernel could go
+wrong, shared by the CPU tests against the JAX package
+(test_torch_dp_cc_redesign.py, test_torch_vdp_census_redesign.py), the
+card tests against the plain versions (test_torch_kernels_gpu.py) and
+chip_smoke.py. numpy only: no JAX.
 """
 
 import numpy as np
 
-from moving_object_detector_tpu_torch.ops import clustering_cuda
+from moving_object_detector_tpu_torch.ops import (
+    clustering_cuda,
+    sgm_cuda,
+    sgm_v1_cuda,
+)
 
 TH, TW = clustering_cuda.TILE_H, clustering_cuda.TILE_W
 # One shape for every CC case, with partial tiles on both edges, and one
@@ -93,3 +99,58 @@ CC_CASES = {
 # int8 limit), P1 > P2.
 DP_CASES = [(6, 37, 10, 120), (5, 171, 10, 120), (4, 150, 0, 0),
             (4, 133, 10, 127), (4, 150, 40, 7)]
+
+
+# The vertical DP stages V_ROWS-row blocks of a strip of columns sized to
+# the card (sgm_cuda.v_strip; an H100 has 132 SMs). (h, w, p1, p2):
+# heights 1, below, equal to and not a multiple of the row block; widths
+# below D = 128 and whose last strip is partial on an H100 (133: strip 3;
+# 1000: strip 16; 4500: the widest strip, 32, and more blocks than SMs);
+# the four penalty pairs of DP_CASES and a P1 above the 160 at which the
+# kernel clamps it (the same paths for every P1 >= 160).
+VR = sgm_cuda.V_ROWS
+H100_SMS = 132
+VDP_CASES = [(1, 133, 10, 120), (VR - 3, 37, 10, 120), (VR, 133, 0, 0),
+             (2 * VR + 5, 133, 10, 127), (2 * VR + 5, 37, 40, 7),
+             (VR + 1, 1000, 10, 120), (3, 4500, 40, 7), (1, 37, 40, 7),
+             (VR - 1, 133, 500, 127)]
+
+# The census kernel stages CENSUS_TILE_H x CENSUS_TILE_W tiles with the
+# window's halo. name: (h, w, window, kind); kind "random", "constant"
+# (every neighbour ties) or "nonfinite" (NaN, +inf, -inf and signed zeros
+# among the pixels).
+CTH, CTW = sgm_v1_cuda.CENSUS_TILE_H, sgm_v1_cuda.CENSUS_TILE_W
+CENSUS_CASES = {
+    "1x1": (1, 1, (5, 5), "random"),
+    "2x3": (2, 3, (5, 5), "random"),
+    "smaller_than_the_halo_3x9": (2, 5, (3, 9), "random"),
+    "not_a_multiple_of_the_tile": (2 * CTH + 3, CTW + 5, (5, 5), "random"),
+    "three_tiles_down_two_across": (3 * CTH, 2 * CTW + 7, (5, 5), "random"),
+    "constant_ties": (CTH + 3, 40, (5, 5), "constant"),
+    "nan_and_inf_pixels": (CTH + 5, CTW + 22, (5, 5), "nonfinite"),
+    "window_3x3": (CTH + 1, CTW + 12, (3, 3), "random"),
+    "window_3x9": (CTH + 2, CTW + 3, (3, 9), "random"),
+    "window_11x3_nonfinite": (2 * CTH + 1, 50, (11, 3), "nonfinite"),
+    "window_1x33": (3, 70, (1, 33), "random"),
+}
+
+
+def census_pair(case):
+    """(left, right) f32 images of a census case, from a seed."""
+    h, w, _, kind = CENSUS_CASES[case]
+    rng = np.random.default_rng(h * 1000 + w)
+    if kind == "constant":
+        flat = np.full((h, w), 0.25, np.float32)
+        return flat, flat.copy()
+    # Few grey levels: many neighbours tie with their centre.
+    left, right = (np.round(rng.uniform(0, 1, (2, h, w)) * 8) / 8).astype(
+        np.float32)
+    if kind == "nonfinite":
+        for img in (left, right):
+            u = rng.random((h, w))
+            img[u < 0.06] = np.nan
+            img[(u >= 0.06) & (u < 0.12)] = np.inf
+            img[(u >= 0.12) & (u < 0.18)] = -np.inf
+            img[(u >= 0.18) & (u < 0.22)] = -0.0
+            img[(u >= 0.22) & (u < 0.26)] = 0.0
+    return left, right

@@ -88,13 +88,14 @@ def test_cc_tile_border_cases_equal_jax(case):
 
 
 def test_dp_width_limit_fits_the_shared_memory_of_a_block():
-    """The widest row the wrapper lets through (it raises beyond, on the
-    card) is the widest whose two staged census lines fit the 227 KB a
-    block can have, and it lies above the WTA's limit."""
-    w = sgm_cuda.MAX_DP_WIDTH
+    """The widest row the horizontal DP stages (wider rows take its
+    global-memory variant, on the card) is the widest whose two staged
+    census lines fit the 227 KB a block can have, and it lies above the
+    WTA's."""
+    w = sgm_cuda.DP_SMEM_WIDTH
     assert sgm_cuda.h_dp_smem_bytes(w) <= sgm_cuda.SMEM_PER_BLOCK
     assert sgm_cuda.h_dp_smem_bytes(w + 1) > sgm_cuda.SMEM_PER_BLOCK
-    assert w >= sgm_cuda.MAX_WTA_WIDTH
+    assert w >= sgm_cuda.WTA_SMEM_WIDTH
 
 
 def _census_pair(h, w, seed):

@@ -79,11 +79,12 @@ def test_wta_edge_cases_bitwise_equal_pallas_interpret(case):
 
 
 def test_wta_width_limit_fits_the_shared_memory_of_a_block():
-    """The widest row the wrapper lets through (it raises beyond, on the
-    card) needs less than the 227 KB a block can have, and the limit lies
-    well above a full KITTI row. The kernel keeps two padded lines (4 pad
-    words every 16) and two plain ones, a word a pixel each."""
-    w = sgm_cuda.MAX_WTA_WIDTH
+    """The widest row the WTA stages in shared memory (wider rows take its
+    global-memory variant, on the card) needs less than the 227 KB a
+    block can have, and the limit lies well above a full KITTI row. The
+    kernel keeps two padded lines (4 pad words every 16) and two plain
+    ones, a word a pixel each."""
+    w = sgm_cuda.WTA_SMEM_WIDTH
     padded = (w - 1) + ((w - 1) // 16) * 4 + 1
     assert (2 * padded + 2 * w) * 4 <= 232448
     assert w >= 4 * 1242
@@ -115,27 +116,28 @@ def test_correlation_edge_cases_match_pallas_interpret(b, c, h, w, r):
 def test_kernel_backends_take_their_census_from_the_census_wrapper(
         monkeypatch, backend):
     """Both kernel branches of ``sgm_disparity_raw`` call
-    ``sgm_v1_cuda.census`` once a view and the plain transform only
-    through it; the CPU result stays bitwise what the plain form gives."""
+    ``sgm_v1_cuda.census_pair`` once a pair (one launch for both views)
+    and the plain transform only through it; the CPU result stays bitwise
+    what the plain form gives."""
     left, right = (torch.from_numpy(x) for x in wta_pair(12, 140, False, 3))
     plain = sgm.sgm_disparity_raw(left, right, SGMConfig(backend="xla"))
     calls, direct = [], []
-    census = sgm_v1_cuda.census
+    census_pair = sgm_v1_cuda.census_pair
     transform = sgm.census_transform
 
-    def counted_census(img, window=(5, 5)):
+    def counted_census_pair(left, right, window=(5, 5)):
         calls.append(1)
-        direct.append(-1)  # the transform call below is the wrapper's own
-        return census(img, window)
+        direct.append(-2)  # the transform calls below are the wrapper's own
+        return census_pair(left, right, window)
 
     def counted_transform(img, window=(5, 5)):
         direct.append(1)
         return transform(img, window)
 
-    monkeypatch.setattr(sgm_v1_cuda, "census", counted_census)
+    monkeypatch.setattr(sgm_v1_cuda, "census_pair", counted_census_pair)
     monkeypatch.setattr(sgm, "census_transform", counted_transform)
     out = sgm.sgm_disparity_raw(left, right, SGMConfig(backend=backend))
-    assert len(calls) == 2
+    assert len(calls) == 1
     assert sum(direct) == 0  # no call of the transform but the wrapper's
     assert torch.equal(out.view(torch.int32), plain.view(torch.int32))
     assert float((out >= 0).float().mean()) > 0.3

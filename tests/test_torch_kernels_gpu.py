@@ -25,7 +25,13 @@ from moving_object_detector_tpu_torch.ops import (
     sgm_cuda,
     sgm_v1_cuda,
 )
-from dp_cc_cases import CC_CASES, DP_CASES
+from dp_cc_cases import (
+    CC_CASES,
+    CENSUS_CASES,
+    DP_CASES,
+    VDP_CASES,
+    census_pair,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -116,45 +122,104 @@ def test_sgm_horizontal_bitwise_equal_plain(cuda, h, w, p1, p2):
 
 
 def test_sgm_horizontal_widest_row_and_refusal(cuda):
-    """The widest row the kernel takes (its shared memory opted in above 48
-    KB): the forward deltas of the first 300 pixels depend on those pixels
-    alone, the backward ones of the last 173 on the last 300, so those
-    agree with the plain version on the slices. One pixel more raises."""
-    w = sgm_cuda.MAX_DP_WIDTH
-    cl, cr = torch.randint(0, 1 << 24, (2, 2, w), dtype=torch.int32,
-                           device=cuda)
-    hf, hb = sgm_cuda.horizontal_deltas(cl, cr, 10, 120)
-    torch.cuda.synchronize()
-    pf, _ = sgm.horizontal_deltas(cl[:, :300], cr[:, :300], 10, 120)
-    _, pb = sgm.horizontal_deltas(cl[:, -300:], cr[:, -300:], 10, 120)
-    assert torch.equal(hf[:, :300], pf)
-    assert torch.equal(hb[:, -173:], pb[:, 127:])
-    wide = torch.zeros((1, w + 1), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match=str(w)):
-        sgm_cuda.horizontal_deltas(wide, wide, 10, 120)
+    """The widest row staged in shared memory (opted in above 48 KB) and
+    the first one past it, which reads the census from global memory: the
+    forward deltas of the first 300 pixels depend on those pixels alone,
+    the backward ones of the last 173 on the last 300, so those agree with
+    the plain version on the slices. No width is refused."""
+    for w in (sgm_cuda.DP_SMEM_WIDTH, sgm_cuda.DP_SMEM_WIDTH + 1):
+        cl, cr = torch.randint(0, 1 << 24, (2, 2, w), dtype=torch.int32,
+                               device=cuda)
+        hf, hb = sgm_cuda.horizontal_deltas(cl, cr, 10, 120)
+        torch.cuda.synchronize()
+        pf, _ = sgm.horizontal_deltas(cl[:, :300], cr[:, :300], 10, 120)
+        _, pb = sgm.horizontal_deltas(cl[:, -300:], cr[:, -300:], 10, 120)
+        assert torch.equal(hf[:, :300], pf)
+        assert torch.equal(hb[:, -173:], pb[:, 127:])
 
 
-def test_sgm_wta_takes_arbitrary_int8_volumes_and_refuses_wide_rows(cuda):
-    h, w = 9, 131
+def _random_wta_inputs(cuda, h, w):
     vols = [torch.randint(-128, 128, (h, w, 128), dtype=torch.int8,
                           device=cuda) for _ in range(4)]
     cl, cr = torch.randint(0, 1 << 24, (2, h, w), dtype=torch.int32,
                            device=cuda)
-    out = sgm_cuda.wta(*vols, cl, cr, uniqueness_ratio=0.9)
-    ref = sgm.wta_from_total(sgm.total_from_deltas(*vols, cl, cr),
-                             uniqueness_ratio=0.9)
-    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
-    wide = sgm_cuda.MAX_WTA_WIDTH + 1
-    vol = torch.zeros((1, wide, 128), dtype=torch.int8, device=cuda)
-    census = torch.zeros((1, wide), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match=str(sgm_cuda.MAX_WTA_WIDTH)):
-        sgm_cuda.wta(vol, vol, vol, vol, census, census)
-    # The widest row it takes needs the opt-in shared memory above 48 KB.
-    ok = sgm_cuda.MAX_WTA_WIDTH
-    out = sgm_cuda.wta(*(vol[:, :ok].contiguous(),) * 4, census[:, :ok],
-                       census[:, :ok])
-    torch.cuda.synchronize()
+    return vols, cl, cr
+
+
+def test_sgm_wta_takes_arbitrary_int8_volumes_and_refuses_wide_rows(cuda):
+    """Random int8 volumes, negative deltas included, at a narrow row and
+    just past the old ceiling of 8192 (staged in shared memory, opted in
+    above 48 KB), at 9,000, at the widest staged row and at the first width
+    past the shared-memory limit (the global-memory variant): bitwise equal
+    to the plain version, for the LR check on and off. No width is
+    refused."""
+    for w in (131, 8193, 9000, sgm_cuda.WTA_SMEM_WIDTH,
+              sgm_cuda.WTA_SMEM_WIDTH + 1):
+        h = 9 if w == 131 else 2
+        vols, cl, cr = _random_wta_inputs(cuda, h, w)
+        total = sgm.total_from_deltas(*vols, cl, cr)
+        for lr, uniq in ((True, 0.9), (True, 0.0), (False, 0.0)):
+            kw = dict(lr_check=lr, uniqueness_ratio=uniq)
+            out = sgm_cuda.wta(*vols, cl, cr, **kw)
+            ref = sgm.wta_from_total(total, **kw)
+            assert torch.equal(out.view(torch.int32), ref.view(torch.int32)), \
+                (w, kw)
+    zeros = torch.zeros((1, 9000, 128), dtype=torch.int8, device=cuda)
+    census = torch.zeros((1, 9000), dtype=torch.int32, device=cuda)
+    out = sgm_cuda.wta(zeros, zeros, zeros, zeros, census, census)
     assert bool((out == 0).all())
+
+
+@pytest.mark.parametrize("w", [4097, 19000, sgm_v1_cuda.WTA_SMEM_WIDTH,
+                               sgm_v1_cuda.WTA_SMEM_WIDTH + 1])
+def test_sgm_v1_wta_takes_wide_rows(cuda, w):
+    """Past the old ceiling of 4096 (the shared memory opted in above 48
+    KB), at 19,000, at the widest staged row and at the first width past
+    the shared-memory limit (the global-memory variant): bitwise equal to
+    the plain version."""
+    total = torch.randint(0, 600, (2, w, 128), dtype=torch.int16,
+                          device=cuda)
+    for subpixel, lr in ((True, True), (False, True), (True, False)):
+        out = sgm_v1_cuda.wta(total, subpixel, lr, 1.0)
+        ref = sgm.wta_from_total(total, subpixel, lr, 1.0)
+        assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("h,w,p1,p2", VDP_CASES)
+def test_sgm_vertical_edge_cases_bitwise_equal_plain(cuda, h, w, p1, p2):
+    """Heights at and around the row block, widths below D and with a
+    partial last strip, the four penalty pairs: both directions bitwise,
+    one launch."""
+    rng = np.random.default_rng(h * w + p2)
+    left = torch.tensor(rng.uniform(0, 1, (h, w)), dtype=torch.float32,
+                        device=cuda)
+    right = torch.roll(left, -9, 1) + 0.02 * torch.randn(h, w, device=cuda)
+    cl, cr = sgm.census_transform(left), sgm.census_transform(right)
+    before = sgm_cuda.LAUNCHES["sgm_vertical"]
+    vf, vb = sgm_cuda.vertical_deltas(cl, cr, p1, p2)
+    assert sgm_cuda.LAUNCHES["sgm_vertical"] == before + 1
+    pf, pb = sgm.vertical_deltas(cl, cr, p1, p2)
+    assert torch.equal(vf, pf) and torch.equal(vb, pb)
+
+
+def test_sgm_vertical_refuses_a_negative_p1(cuda):
+    cl = torch.zeros((4, 40), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="P1=-1"):
+        sgm_cuda.vertical_deltas(cl, cl, -1, 120)
+
+
+@pytest.mark.parametrize("case", sorted(CENSUS_CASES))
+def test_census_pair_edge_cases_bitwise_equal_plain(cuda, case):
+    """Both views in one launch, each equal to the plain transform and to
+    the kernel run on that view alone."""
+    _, _, window, _ = CENSUS_CASES[case]
+    left, right = (torch.from_numpy(x).to(cuda) for x in census_pair(case))
+    before = sgm_v1_cuda.LAUNCHES["sgm1_census"]
+    cl, cr = sgm_v1_cuda.census_pair(left, right, window)
+    assert sgm_v1_cuda.LAUNCHES["sgm1_census"] == before + 1
+    for out, img in ((cl, left), (cr, right)):
+        assert torch.equal(out, sgm.census_transform(img, window))
+        assert torch.equal(out, sgm_v1_cuda.census(img, window))
 
 
 V1_SHAPES = [(188, 621), (125, 350), (16, 50), (7, 33)]
