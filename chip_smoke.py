@@ -26,7 +26,14 @@
    the v1 WTA at 4,097, 19,000 and past its limit, the horizontal DP past
    its limit), the CC on its tile-border cases (contiguous and strided),
    and the CC's device time is printed on the full-frame inputs (blobs,
-   one component, serpentine, dense).
+   one component, serpentine, dense). The v1 aggregation is held on its
+   edge cases (lengths around its ring's chunks, lines on both sides of
+   its shared-memory limits, P2 on both sides of its byte deltas' limit,
+   negative costs) and at the serving shape and the full frame for five
+   (P1, P2) pairs; the cluster stats on their edge cases (cap 1 and 32,
+   repeated roots, no slot used, one cluster over the image, signed zeros
+   and NaN members, a strided crop), three times in a row, on two streams
+   at once and at the full frame, and must be one kernel a call.
 3. Runs ``pipeline.detect_step`` at the KITTI serving point (376 x 1242,
    pwc_v7 weights, flow and SGM at half resolution, two-window clusterer
    crop, default backends: windowed gather, CC and cluster-stats kernels)
@@ -440,16 +447,23 @@ def check_sgm_v1_kernels(dev, report):
         if serving is None:
             serving = (h, w, left, right, cl, cr, cost, total)
     check_census_cases(dev, sgm, sgm_v1_cuda)
+    check_aggregate_cases(dev, sgm, sgm_v1_cuda)
 
     h, w, left, right, cl, cr, cost, total = serving
     n = h * w
     scratch = torch.empty_like(total)
-    for vertical in (False, True):  # each launch alone, storing
+    for vertical in (False, True):  # each launch alone
         one = lambda: sgm_v1_cuda._aggregate_pass(
-            cost, scratch, 10, 120, vertical=vertical, accumulate=False)
+            cost, scratch, 10, 120, vertical=vertical)
         log(f"sgm1_aggregate launch along the "
             f"{'columns' if vertical else 'rows'} alone at {h}x{w}: "
             f"{median_ms(one):.4f} ms, on the device {device_ms(one):.4f} ms")
+    full = torch.randint(0, 33, (2 * h, 2 * w, d), dtype=torch.int8,
+                         device=dev)
+    one = lambda: sgm_v1_cuda.aggregate(full, 10, 120)
+    log(f"sgm1_aggregate at {2 * h}x{2 * w} (column strip "
+        f"{sgm_v1_cuda.agg_plan(2 * h, 2 * w, 120, sms(dev))[1]}): "
+        f"{median_ms(one):.4f} ms, on the device {device_ms(one):.4f} ms")
     timings = {
         "sgm1_census": (  # both views of the pair, one launch
             lambda: sgm_v1_cuda.census_pair(left, right),
@@ -483,6 +497,53 @@ def check_sgm_v1_kernels(dev, report):
             source="moving_object_detector_tpu_torch/csrc/sgm_v1.cu",
             replaces=replaces, max_abs_err=0.0, **timed(kern, plain),
             bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def check_aggregate_cases(dev, sgm, sgm_v1_cuda) -> None:
+    """sgm1_aggregate against its plain version, bitwise, on the cases of
+    tests/dp_cc_cases.py (lengths 1, 2, odd and around the ring's chunks,
+    lines on both sides of the shared-memory limits, P2 on both sides of
+    the byte deltas' limit, negative int8 costs), at the serving shape and
+    the full frame for five (P1, P2) pairs, and with blocks of more lines
+    than the image has, staged and not."""
+    from dp_cc_cases import (AGG_CASES, AGG_FULL, AGG_PENALTIES, AGG_SERVING,
+                             agg_cost)
+
+    def same(cost, p1, p2):
+        return torch.equal(sgm_v1_cuda.aggregate(cost, p1, p2),
+                           sgm.aggregate_cost_volume(cost, p1, p2))
+
+    for h, w, p1, p2, kind in AGG_CASES:
+        cost = torch.from_numpy(agg_cost(h, w, kind)).to(dev)
+        if not same(cost, p1, p2):
+            raise AssertionError(f"sgm1_aggregate differs at {h}x{w} "
+                                 f"p1={p1} p2={p2} ({kind})")
+    for shape in (AGG_SERVING, AGG_FULL):
+        cost = torch.from_numpy(agg_cost(*shape, "int8")).to(dev)
+        for p1, p2 in AGG_PENALTIES:
+            if not same(cost, p1, p2):
+                raise AssertionError(f"sgm1_aggregate differs at {shape} "
+                                     f"p1={p1} p2={p2}")
+    cost = torch.from_numpy(agg_cost(11, 5, "int8")).to(dev)
+    ref = sgm.aggregate_cost_volume(cost, 10, 120)
+    for staged in (True, False):
+        total = torch.empty_like(ref)
+        plan = (sgm_v1_cuda.AGG_MAX_STRIP, staged)
+        sgm_v1_cuda._aggregate_pass(cost, total, 10, 120, False, plan)
+        sgm_v1_cuda._aggregate_pass(cost, total, 10, 120, True, plan)
+        if not torch.equal(total, ref):
+            raise AssertionError(f"sgm1_aggregate differs with blocks of "
+                                 f"{plan[0]} lines over 5 (staged {staged})")
+    plans = [sgm_v1_cuda.agg_plan(*shape, 120, sms(dev))
+             for shape in (AGG_SERVING, AGG_FULL)]
+    log(f"sgm1_aggregate bitwise equal to plain on {len(AGG_CASES)} edge "
+        f"cases, at {AGG_SERVING} and {AGG_FULL} for (p1, p2) in "
+        f"{list(AGG_PENALTIES)} (plans {plans}), and with blocks wider "
+        f"than the image")
 
 
 def check_census_cases(dev, sgm, sgm_v1_cuda) -> None:
@@ -812,6 +873,33 @@ def check_stats_kernel(dev, report, cc_serving):
                              "differs from plain")
     log("cluster_stats kernel equal to plain with a NaN coordinate on a "
         "member pixel (NaN min and max for that slot and axis alone)")
+    check_stats_cases(dev, cluster_stats, cluster_stats_cuda)
+    run = lambda: cluster_stats_cuda.cluster_stats(labels, points, roots)
+    kernels = device_kernels(run)
+    if len(kernels) != 1 or not 0 < sum(kernels.values()) <= 10:
+        raise AssertionError(f"cluster_stats ran {kernels} in 10 calls, "
+                             "expected one kernel a call")
+    # The full-frame branch: 376 x 1242 blobs, 32 slots.
+    dyn_np, z_np = cc_case("blobs", H, W, rng)
+    full_labels = clustering_cuda.connected_components(
+        torch.from_numpy(dyn_np).to(dev), torch.from_numpy(z_np).to(dev),
+        0.15, neighbor_distance=4, stencil_radius=4)
+    found, sizes = torch.unique(full_labels[full_labels < H * W],
+                                return_counts=True)
+    full_roots = torch.full((32,), H * W, dtype=torch.int32, device=dev)
+    k = min(28, found.numel())
+    full_roots[:k] = torch.sort(found[torch.argsort(
+        sizes, descending=True)][:k]).values.to(torch.int32)
+    full_points = torch.randn(H, W, 3, device=dev) * 5.0
+    full = lambda: cluster_stats_cuda.cluster_stats(full_labels, full_points,
+                                                    full_roots)
+    if not stats_equal(full(), cluster_stats.cluster_stats(
+            full_labels, full_points, full_roots)):
+        raise AssertionError("cluster_stats differs at the full frame")
+    log(f"cluster_stats: one kernel a call; equal to plain at {H}x{W} "
+        f"({k} of 32 slots used): {median_ms(full):.4f} ms, on the device "
+        f"{device_ms(full):.4f} ms (bound "
+        f"{bound_ms(20 * H * W, 16 * H * W)[0]:.4f} ms)")
     n = CROP_H * CROP_W
     bms, by = bound_ms(20 * n, 16 * n)
     report["cluster_stats"] = dict(
@@ -824,6 +912,69 @@ def check_stats_kernel(dev, report, cc_serving):
                                                          roots),
                 lambda: cluster_stats.cluster_stats(labels, points, roots)),
         bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def stats_equal(out, ref) -> bool:
+    """cid and csize equal, mins and maxs equal by value (a zero may carry
+    either sign) with NaN in the same places."""
+    return (torch.equal(out[0], ref[0]) and torch.equal(out[3], ref[3])
+            and equal_with_nans(out[1], ref[1])
+            and equal_with_nans(out[2], ref[2]))
+
+
+def device_kernels(fn, reps: int = 10) -> dict:
+    """Kernel records of the profiler by name over ``reps`` calls of
+    ``fn``, after a warm-up call. The profiler may drop a record, never
+    add one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            names[e.name] = names.get(e.name, 0) + 1
+    return names
+
+
+def check_stats_cases(dev, cluster_stats, cluster_stats_cuda) -> None:
+    """cluster_stats against its plain version on the cases of
+    tests/dp_cc_cases.py (cap 1 and 32, repeated roots, no slot used, one
+    cluster over the image, signed zeros and NaN members, a strided crop,
+    an image not a multiple of the block), then all of them three times in
+    a row and on two streams at once: the accumulator the kernel leaves
+    zeroed is per stream."""
+    from dp_cc_cases import STATS_CASES, on_device, stats_case
+
+    cases = []
+    for name in sorted(STATS_CASES):
+        labels, points, roots = stats_case(name)
+        cases.append((torch.from_numpy(labels).to(dev),
+                      on_device(points, dev), torch.from_numpy(roots).to(dev)))
+    refs = [cluster_stats.cluster_stats(*c) for c in cases]
+    for _ in range(3):
+        for name, c, ref in zip(sorted(STATS_CASES), cases, refs):
+            if not stats_equal(cluster_stats_cuda.cluster_stats(*c), ref):
+                raise AssertionError(f"cluster_stats differs on {name}")
+    streams = [torch.cuda.Stream(device=dev), torch.cuda.Stream(device=dev)]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(4):
+        for k, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                for c in cases[k::2]:
+                    outs[k].append(cluster_stats_cuda.cluster_stats(*c))
+    torch.cuda.synchronize()
+    for k in range(2):
+        if not all(stats_equal(o, r)
+                   for o, r in zip(outs[k], refs[k::2] * 4)):
+            raise AssertionError(f"cluster_stats differs on stream {k}")
+    log(f"cluster_stats kernel equal to plain on {len(STATS_CASES)} edge "
+        f"cases, three times in a row and on two streams at once")
 
 
 def check_fused_kernel(dev, report):

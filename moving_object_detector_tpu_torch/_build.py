@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). Libraries go into ``_build/`` beside
-this file, named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads at once. ``build_all`` starts
-one ``nvcc`` per source, all together, and waits for all of them.
+this file, named by a hash of the source, the headers of ``csrc/`` and the
+flags, so an edited source or header rebuilds and an unchanged one loads
+at once. ``build_all`` starts one ``nvcc`` per source, all together, and
+waits for all of them.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
@@ -45,8 +46,12 @@ def _nvcc() -> str:
 
 def _target(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(FLAGS).encode())
+    digest = hashlib.sha256(" ".join(FLAGS).encode())
+    # The source and every header it may include.
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD_DIR,
                              f"{name}-{digest.hexdigest()[:16]}.so")
 

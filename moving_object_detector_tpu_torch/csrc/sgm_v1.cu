@@ -34,17 +34,27 @@
 // - sgm1_cost: the bytes of the volume it writes. One warp per pixel, lane
 //   l holds disparities 4 l .. 4 l + 3 and stores them as one char4, so a
 //   warp writes 128 contiguous bytes.
-// - sgm1_aggregate: latency along the scan, as the v2 DP. One warp per scan
-//   direction, 4 disparities a lane, the recurrence in registers, min Lp by
-//   a __shfl_xor reduction and d -+ 1 by one __shfl_up / __shfl_down. A
-//   block owns one line and runs its forward and backward walks at once,
-//   each adding its L into the line's int16 cells; the two warps swap
-//   halves at a barrier, so no cell is touched by both at a time and no
-//   atomics are needed. The vertical launch adds into what the horizontal
-//   one wrote. A vertical line's steps lie W * 128 bytes apart, so nothing
-//   of the next step is in a cache line already fetched: the loads of
-//   kUnroll steps are started together before the dependent updates, which
-//   keeps that many requests in flight per warp.
+// - sgm1_aggregate: latency along the scan, as the v2 DP, and the bytes of
+//   the int16 total. A scan's time is its length times one step, so only
+//   the recurrence stays on a step's chain: the costs come from a
+//   cp.async ring in shared memory filled ahead of the walk, the
+//   recurrence runs on 16-bit pairs with Hopper's DPX instructions
+//   (__vimin3_s16x2, __viaddmin_s16x2) and one __reduce_min_sync. Two
+//   launches, one along the rows and one along the columns, each walking
+//   its lines both ways at once; the two walks of a line meet in the
+//   middle through shared memory, so that the row launch writes each total
+//   cell once and the column launch reads and writes it once: 120 MB at
+//   188 x 621, against about 240 MB for the former design, which stored,
+//   re-read and rewrote each cell from both walks of both launches. The
+//   column launch gives each block a strip of columns sized to the card
+//   (sgm_v1_cuda.agg_plan). Lines longer than shared memory holds, and
+//   P2 > 255, take a read-modify-write variant: no length is refused.
+//   At 188 x 621 (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W): 0.041 ms
+//   along the rows (621 steps, 66 ns a step: the chain) and 0.032 along
+//   the columns (188 steps on 125 blocks of 10 warps: issue), 0.073 in
+//   all against 0.43 for the former design, which walked each line with
+//   one warp a direction, loads on the chain, and added into the total
+//   from both walks of both launches.
 // - sgm1_wta: the bytes of the int16 volume, read once and coalesced. One
 //   block per image row, one warp per pixel, lane l holding disparities
 //   l, l + 32, l + 64, l + 96. The right view needs total(x + d, d) for
@@ -64,14 +74,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sgm_dp16.cuh"
+
+#include <type_traits>
+
 namespace {
 
 constexpr int kD = 128;
 constexpr int kMaxCost = 32;
-constexpr int kBig = 1 << 20;
 constexpr int kHuge = 1 << 30;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kUnroll = 4;  // scan steps whose loads are started together
+// Steps a copied chunk of an aggregation ring holds, along the rows (a
+// chunk is one straight-line block of code: longer is faster on the long
+// row chain) and along the columns (whose staged ring also holds the total
+// and shares shared memory with the strip's deltas); chunks a ring holds.
+constexpr int kAggRowSteps = 32;
+constexpr int kAggColSteps = 8;
+constexpr int kAggRingBufs = 2;
+constexpr int kAggMaxStrip = 8;   // lines a block, two warps each
+constexpr int kDelta8MaxP2 = 255;  // a delta in [0, P2] fits a byte
 
 __device__ __forceinline__ int warp_min(int v) {
 #pragma unroll
@@ -185,83 +206,207 @@ __global__ void cost_kernel(const int* __restrict__ cl,
                  static_cast<signed char>(c2), static_cast<signed char>(c3));
 }
 
-// One block of two warps per scan line: warp 0 walks the line forward,
-// warp 1 backward, each adding its L = C + delta into the line's int16
-// cells. Both walk at once without atomics: in the first phase each warp
-// covers its own half of the line (forward [0, len / 2), backward the
-// rest), after the barrier each continues through the half the other has
-// finished, so the two never touch the same cell at the same time. A cell
-// is stored by its first visitor and added to by its second; with
-// accumulate != 0 (the second launch on a volume) both add.
-// VERTICAL scans y down column `line`; otherwise x along row `line`.
-template <bool VERTICAL>
-__global__ void aggregate_kernel(const int8_t* __restrict__ cost,
-                                 int16_t* total, int H, int W, int p1, int p2,
-                                 int accumulate) {
+// Aggregation. The four paths L = C + delta of the plain version, with
+// delta = b - m, b = min(L(d), min(L(d -+ 1)) + P1, m + P2), m = min L, on
+// 16-bit pairs (dp_step16): a lane holds disparities d0 = 4 lane .. d0 + 3
+// as A = (L(d0), L(d0 + 1)), B = (L(d0 + 2), L(d0 + 3)), low half first.
+// Costs are clipped to [0, 127] on read and delta <= P2 <= 8063 (the
+// wrapper's int16 limit, 4 (127 + P2) < 32768), so L <= 8190 and m + P2 <=
+// 16253 fit a signed half. P1 is clamped to P2: L(d -+ 1) >= m, so a P1
+// above P2 gives L(d -+ 1) + P1 > m + P2 and never wins, as P2 does not
+// either (the clamp is exact), and then L(d -+ 1) + P1 <= 0x3fff + 8063
+// fits too. No sum below leaves its half either: every value is >= 0 and
+// every sum of halves stays below 32768, so a 32-bit add adds both halves.
+// Bytes 0, 1 (lo) and 2, 3 (hi) of w as zero-extended 16-bit pairs.
+__device__ __forceinline__ unsigned lo16x2(unsigned w) {
+  return __byte_perm(w, 0, 0x4140);
+}
+__device__ __forceinline__ unsigned hi16x2(unsigned w) {
+  return __byte_perm(w, 0, 0x4342);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+// One launch aggregates both directions of a set of lines: the rows
+// (VERTICAL false, storing L_left + L_right into the total) or the columns
+// (VERTICAL, adding L_up + L_down to what the row launch stored). A block
+// owns `strip` adjacent lines, two warps a line: warp 2k walks line k
+// forward, warp 2k + 1 backward. Each total cell is written once a launch:
+// the two walks of a line meet in the middle.
+// - Both walks take P = ceil(len / 2) steps, then all warps meet at one
+//   barrier, then P more. Step i of the forward walk is at pos i, of the
+//   backward walk at pos 2P - 1 - i (for an odd len its first step lies
+//   past the line and its last forward step too: they do nothing). So in
+//   the first half each walk covers its own half of the line, in the
+//   second the other's.
+// - STAGED: in its first half a walk stores its deltas, one byte a
+//   disparity, in the block's shared memory (len x 128 bytes a line);
+//   in its second half it reads the other walk's delta at the same cell
+//   and writes total = L + C + delta_other (+ the row launch's total) once.
+//   A byte holds a delta while P2 <= 255.
+// - Otherwise (P2 > 255, or lines longer than shared memory holds) the
+//   first half stores L (+ the row launch's total) into the total cell and
+//   the second half reads it back and adds, as a read-modify-write in
+//   global memory: correct for every length and P2, with twice the bytes.
+// - Costs are off the chain: each warp copies its line's next steps into
+//   its own ring of kAggRingBufs chunks of kAggRowSteps / kAggColSteps
+//   steps with 16-byte cp.async, kAggRingBufs - 1 chunks ahead of the
+//   walk; the column launch
+//   (STAGED) copies the row launch's total for its second-half steps the
+//   same way. A step reads its 4 cost bytes (and 8 total bytes) from
+//   shared memory at consecutive lane addresses and stores 8 contiguous
+//   bytes a lane, 256 a warp.
+template <bool VERTICAL, bool STAGED>
+__global__ void __launch_bounds__(64 * kAggMaxStrip)
+    aggregate_kernel(const int8_t* __restrict__ cost,
+                     int16_t* total, int H, int W, int p1,
+                     int p2) {
+  extern __shared__ __align__(16) unsigned char agg_smem[];
+  constexpr int kStepBytes = VERTICAL && STAGED ? 3 * kD : kD;
+  constexpr int kSteps = VERTICAL ? kAggColSteps : kAggRowSteps;
+  constexpr int kChunkBytes = kSteps * kStepBytes;
+  constexpr int kPieces = kStepBytes / 16;  // 16-byte copies a step
   const int lane = threadIdx.x & 31;
-  const int dir = threadIdx.x >> 5;  // 0 forward, 1 backward
-  const int line = blockIdx.x;
+  const int warp = threadIdx.x >> 5;
+  const int strip = blockDim.x >> 6;
+  const int k = warp >> 1;
+  const bool backward = warp & 1;
+  const int line = blockIdx.x * strip + k;
   const int len = VERTICAL ? H : W;
-  const int half = len / 2;
-  const size_t base = VERTICAL ? line : static_cast<size_t>(line) * W;
-  const size_t step = VERTICAL ? W : 1;
-  const int d0 = lane * 4;
-  int l0 = 0, l1 = 0, l2 = 0, l3 = 0;
-  for (int phase = 0; phase < 2; ++phase) {
-    const bool add = phase == 1 || accumulate != 0;
-    // Forward: [0, half) then [half, len). Backward: len - 1 down to half,
-    // then half - 1 down to 0.
-    const int start = dir == 0 ? (phase == 0 ? 0 : half)
-                               : (phase == 0 ? len - 1 : half - 1);
-    const int count = (dir == 0) == (phase == 0) ? half : len - half;
-    const int sign = dir == 0 ? 1 : -1;
-    for (int s0 = 0; s0 < count; s0 += kUnroll) {
-      char4 c[kUnroll];
-      short4 t[kUnroll];
-      size_t off[kUnroll];
+  const bool live = line < (VERTICAL ? W : H);
+  const int P = (len + 1) / 2;
+  unsigned char* ring = agg_smem + warp * kAggRingBufs * kChunkBytes;
+  unsigned* delta = reinterpret_cast<unsigned*>(
+                        agg_smem + 2 * strip * kAggRingBufs * kChunkBytes) +
+                    static_cast<size_t>(k) * len * 32 + lane;
+  const size_t first = VERTICAL ? line : static_cast<size_t>(line) * W;
+  const size_t step_px = VERTICAL ? W : 1;
+  auto pos_of = [&](int i) { return backward ? 2 * P - 1 - i : i; };
+  auto pixel = [&](int pos) { return first + pos * step_px; };
+
+  // Copies chunk c (steps [c R, c R + R)) into its buffer: a step's cost
+  // is 8 pieces of 16 bytes (4 steps a pass of the warp), its total, for
+  // second-half steps of the staged column launch, 16 (2 steps a pass).
+  auto fetch = [&](int c) {
+    unsigned char* buf = ring + (c % kAggRingBufs) * kChunkBytes;
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (s0 + u < count) {
-          const int pos = start + sign * (s0 + u);
-          off[u] = (base + pos * step) * kD + d0;
-          c[u] = *reinterpret_cast<const char4*>(cost + off[u]);
-          if (add) t[u] = *reinterpret_cast<const short4*>(total + off[u]);
-        }
+    for (int j0 = 0; j0 < kSteps; j0 += 4) {
+      const int j = j0 + (lane >> 3);
+      const int i = c * kSteps + j;
+      const int pos = pos_of(i);
+      if (i < 2 * P && pos < len) {
+        cp_async16(buf + j * kStepBytes + (lane & 7) * 16,
+                   cost + pixel(pos) * kD + (lane & 7) * 16);
       }
+    }
+    if constexpr (VERTICAL && STAGED) {
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (s0 + u < count) {
-          const int m = warp_min(min(min(l0, l1), min(l2, l3)));
-          int left = __shfl_up_sync(kFull, l3, 1);  // L(d0 - 1)
-          int right = __shfl_down_sync(kFull, l0, 1);  // L(d0 + 4)
-          if (lane == 0) left = kBig;
-          if (lane == 31) right = kBig;
-          const int mp2 = m + p2;
-          const int e0 = min(min(l0, mp2), min(left, l1) + p1) - m;
-          const int e1 = min(min(l1, mp2), min(l0, l2) + p1) - m;
-          const int e2 = min(min(l2, mp2), min(l1, l3) + p1) - m;
-          const int e3 = min(min(l3, mp2), min(l2, right) + p1) - m;
-          // Costs are clipped to [0, 127] on read (int8 tops out at 127).
-          l0 = max(static_cast<int>(c[u].x), 0) + e0;
-          l1 = max(static_cast<int>(c[u].y), 0) + e1;
-          l2 = max(static_cast<int>(c[u].z), 0) + e2;
-          l3 = max(static_cast<int>(c[u].w), 0) + e3;
-          short4 o;
-          if (add) {
-            o = make_short4(static_cast<short>(t[u].x + l0),
-                            static_cast<short>(t[u].y + l1),
-                            static_cast<short>(t[u].z + l2),
-                            static_cast<short>(t[u].w + l3));
-          } else {
-            o = make_short4(static_cast<short>(l0), static_cast<short>(l1),
-                            static_cast<short>(l2), static_cast<short>(l3));
-          }
-          *reinterpret_cast<short4*>(total + off[u]) = o;
+      for (int j0 = 0; j0 < kSteps; j0 += 2) {
+        const int j = j0 + (lane >> 4);
+        const int i = c * kSteps + j;
+        const int pos = pos_of(i);
+        if (i >= P && i < 2 * P && pos < len) {
+          cp_async16(buf + j * kStepBytes + kD + (lane & 15) * 16,
+                     reinterpret_cast<const unsigned char*>(
+                         total + pixel(pos) * kD) + (lane & 15) * 16);
         }
       }
     }
-    __syncthreads();  // the halves change hands
+  };
+
+  const int pc = min(p1, p2);
+  const unsigned p1p1 = __byte_perm(pc, pc, 0x5410);
+  const unsigned p2p2 = __byte_perm(p2, p2, 0x5410);
+  unsigned A = 0u, B = 0u;
+  // In the read-modify-write variant, what the cell holds before this
+  // walk adds to it: the other walk's L (second half) or the row launch's
+  // total (column launch).
+  auto prior = [&](int pos) {
+    return *(reinterpret_cast<const uint2*>(total + pixel(pos) * kD) + lane);
+  };
+  // One step at `pos`, its cost (and, staged, its prior total) at st.
+  auto step = [&](const unsigned char* st, int pos, uint2 r, auto half) {
+    constexpr bool kSecond = decltype(half)::value;
+    const unsigned cw =
+        __vmaxs4(*reinterpret_cast<const unsigned*>(st + 4 * lane), 0u);
+    const unsigned cA = lo16x2(cw), cB = hi16x2(cw);
+    const unsigned e = dp_step16(A, B, cA, cB, p1p1, p2p2, lane);
+    uint2* out = reinterpret_cast<uint2*>(total + pixel(pos) * kD) + lane;
+    if constexpr (STAGED) {
+      unsigned* dc = delta + static_cast<size_t>(pos) * 32;
+      if constexpr (!kSecond) {
+        *dc = e;
+      } else {
+        const unsigned o = *dc;
+        uint2 t = make_uint2(A + cA + lo16x2(o), B + cB + hi16x2(o));
+        if constexpr (VERTICAL) {
+          const uint2 v = *reinterpret_cast<const uint2*>(st + kD + 8 * lane);
+          t.x += v.x;
+          t.y += v.y;
+        }
+        *out = t;
+      }
+    } else if constexpr (kSecond || VERTICAL) {
+      *out = make_uint2(r.x + A, r.y + B);
+    } else {
+      *out = make_uint2(A, B);
+    }
+  };
+  constexpr bool kReads = !STAGED;  // the variant reads the cell first
+  auto walk = [&](int i0, int i1, auto half) {
+    constexpr bool kRmw =
+        kReads && (decltype(half)::value || VERTICAL);
+    for (int c = i0 / kSteps; c * kSteps < i1; ++c) {
+      const int lo = c * kSteps, hi = lo + kSteps;
+      if (lo >= i0) {  // chunk c begins: refill, wait
+        __syncwarp();  // the buffer of chunk c - 1 is free
+        fetch(c + kAggRingBufs - 1);
+        cp_async_commit();
+        cp_async_wait<kAggRingBufs - 1>();
+        __syncwarp();
+      }
+      const unsigned char* buf = ring + (c % kAggRingBufs) * kChunkBytes;
+      if (lo >= i0 && hi <= i1 && max(pos_of(lo), pos_of(hi - 1)) < len) {
+        // The whole chunk on the line and in this half: one block of
+        // straight-line code, so the compiler interleaves a step's stores
+        // and address arithmetic with the next step's chain.
+        uint2 r[kSteps];
+#pragma unroll
+        for (int j = 0; j < kSteps; ++j) {
+          r[j] = kRmw ? prior(pos_of(lo + j)) : make_uint2(0u, 0u);
+        }
+#pragma unroll
+        for (int j = 0; j < kSteps; ++j) {
+          step(buf + j * kStepBytes, pos_of(lo + j), r[j], half);
+        }
+      } else {
+#pragma unroll 1
+        for (int j = 0; j < kSteps; ++j) {
+          const int i = lo + j;
+          const int pos = pos_of(i);
+          if (i < i0 || i >= i1 || pos >= len) continue;
+          step(buf + j * kStepBytes, pos,
+               kRmw ? prior(pos) : make_uint2(0u, 0u), half);
+        }
+      }
+    }
+  };
+
+  if (live) {
+    for (int c = 0; c < kAggRingBufs - 1; ++c) {
+      fetch(c);
+      cp_async_commit();
+    }
+    walk(0, P, std::false_type{});
   }
+  __syncthreads();  // every first half is stored
+  if (live) walk(P, 2 * P, std::true_type{});
+  cp_async_wait<0>();
 }
 
 // One block per image row. STAGED: dynamic shared memory, 2 W words (the
@@ -343,8 +488,27 @@ __global__ void wta_kernel(const int16_t* __restrict__ total, float* out,
 }
 
 constexpr int kCostThreads = 256;  // 8 pixels per block
-constexpr int kAggThreads = 64;    // one scan line per block, two warps
 constexpr int kWtaThreads = 256;
+constexpr int kSmemPerBlock = 232448;  // bytes a block may opt in to
+
+// Opts a kernel in to `smem` bytes of dynamic shared memory where that is
+// above the 48 KB every kernel has.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+// Shared memory of the aggregation: every warp's ring, then (STAGED) the
+// strip's byte deltas, len x 128 a line.
+size_t agg_smem_bytes(int len, int strip, bool vertical, bool staged) {
+  const size_t step = vertical && staged ? 3 * kD : kD;
+  const size_t steps = vertical ? kAggColSteps : kAggRowSteps;
+  return 2 * static_cast<size_t>(strip) * kAggRingBufs * steps * step +
+         (staged ? static_cast<size_t>(strip) * len * kD : 0);
+}
 
 }  // namespace
 
@@ -382,19 +546,33 @@ int sgm1_cost(const void* cl, const void* cr, void* cost, int H, int W,
   return static_cast<int>(cudaGetLastError());
 }
 
+// vertical: the column launch (adds to the total), else the row launch
+// (stores it). strip: lines a block, 1 .. kAggMaxStrip. staged: byte
+// deltas in shared memory (P2 <= kDelta8MaxP2 and agg_smem_bytes within
+// kSmemPerBlock), else the read-modify-write variant. The cost and total
+// must be 16-byte aligned.
 int sgm1_aggregate(const void* cost, void* total, int H, int W, int p1,
-                   int p2, int vertical, int accumulate, void* stream) {
-  const int blocks = vertical ? W : H;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vertical) {
-    aggregate_kernel<true><<<blocks, kAggThreads, 0, s>>>(
-        static_cast<const int8_t*>(cost), static_cast<int16_t*>(total), H, W,
-        p1, p2, accumulate);
-  } else {
-    aggregate_kernel<false><<<blocks, kAggThreads, 0, s>>>(
-        static_cast<const int8_t*>(cost), static_cast<int16_t*>(total), H, W,
-        p1, p2, accumulate);
-  }
+                   int p2, int vertical, int strip, int staged,
+                   void* stream) {
+  const int len = vertical ? H : W;
+  const size_t smem = agg_smem_bytes(len, strip, vertical, staged);
+  if (strip < 1 || strip > kAggMaxStrip || p1 < 0 || p2 < 0 ||
+      4 * (127 + p2) >= 32768 || (staged && p2 > kDelta8MaxP2) ||
+      smem > kSmemPerBlock ||
+      (reinterpret_cast<uintptr_t>(cost) |
+       reinterpret_cast<uintptr_t>(total)) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = vertical ? (staged ? aggregate_kernel<true, true>
+                                   : aggregate_kernel<true, false>)
+                         : (staged ? aggregate_kernel<false, true>
+                                   : aggregate_kernel<false, false>);
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int lines = vertical ? W : H;
+  kernel<<<(lines + strip - 1) / strip, 64 * strip, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(cost), static_cast<int16_t*>(total), H, W,
+      p1, p2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -405,12 +583,8 @@ int sgm1_wta(const void* total, void* out, void* scratch, int H, int W,
   const bool staged = scratch == nullptr;
   const size_t smem = staged ? static_cast<size_t>(W) * 2 * sizeof(int) : 0;
   auto kernel = staged ? wta_kernel<true> : wta_kernel<false>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<H, kWtaThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(total), static_cast<float*>(out),
       static_cast<int*>(scratch), H, W, subpixel, lr_check, lr_max_diff);

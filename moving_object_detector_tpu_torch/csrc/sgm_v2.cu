@@ -61,6 +61,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sgm_dp16.cuh"
+
 namespace {
 
 constexpr int kD = 128;
@@ -75,15 +77,6 @@ __device__ __forceinline__ void cp_async4(int* dst, const int* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
                "l"(src)
                : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // One DP step for a lane's disparities d0 = 4 lane .. d0 + 3, with the same
@@ -143,43 +136,6 @@ constexpr int kVRowWords = kVCl + kVMaxStrip;
 
 __device__ __forceinline__ int vz(int j) { return j ^ ((j >> 5) & 3); }
 
-constexpr int kBig16 = 0x3fff;  // above every 16-bit path cost
-
-// dp_step on 16-bit pairs: A = (L(d0), L(d0 + 1)), B = (L(d0 + 2),
-// L(d0 + 3)), low half first; cA, cB the costs alike. Every cost is in
-// [0, 159] (C <= 32, delta <= P2 <= 127) and P1 is clamped to 160 by the
-// caller (the same t for P1 >= 160), so no half leaves 16 bits and no
-// half borrows from its neighbour in a 32-bit add or subtract: b - m and
-// e + C are single IADDs. The minimum of the packed (m, m) over the warp
-// is (min L, min L). Both need P1 >= 0 (no negative cost), which
-// SGMConfig and the DP functions of ops/sgm.py check for every backend.
-// The step compiles to about 45 instructions, against about 55 for
-// dp_step's 32-bit lanes.
-__device__ __forceinline__ unsigned dp_step16(unsigned& A, unsigned& B,
-                                              unsigned cA, unsigned cB,
-                                              unsigned p1p1, unsigned p2p2,
-                                              int lane) {
-  const unsigned x = __vimin3_s16x2(A, B, B);
-  const unsigned mine = __vimin3_s16x2(x, __byte_perm(x, 0, 0x1032),
-                                       __byte_perm(x, 0, 0x1032));
-  const unsigned mm = __reduce_min_sync(kFull, mine);
-  unsigned sb = __shfl_up_sync(kFull, B, 1);    // (., L(d0 - 1))
-  unsigned sa = __shfl_down_sync(kFull, A, 1);  // (L(d0 + 4), .)
-  if (lane == 0) sb = kBig16 << 16;
-  if (lane == 31) sa = kBig16;
-  const unsigned y = __byte_perm(A, B, 0x5432);  // (L(d0 + 1), L(d0 + 2))
-  const unsigned nA = __vimin3_s16x2(__byte_perm(sb, A, 0x5432), y, y);
-  const unsigned nB = __vimin3_s16x2(y, __byte_perm(B, sa, 0x5432), y);
-  const unsigned tA = __viaddmin_s16x2(nA, p1p1, A);
-  const unsigned tB = __viaddmin_s16x2(nB, p1p1, B);
-  const unsigned bA = __viaddmin_s16x2(mm, p2p2, tA);
-  const unsigned bB = __viaddmin_s16x2(mm, p2p2, tB);
-  const unsigned eA = bA - mm, eB = bB - mm;
-  A = eA + cA;
-  B = eB + cB;
-  return __byte_perm(eA, eB, 0x6420);
-}
-
 template <bool BACKWARD>
 __device__ __forceinline__ void v_scan(const int* __restrict__ cl,
                                        const int* __restrict__ cr,
@@ -224,6 +180,9 @@ __device__ __forceinline__ void v_scan(const int* __restrict__ cl,
   constexpr int kStep = BACKWARD ? -kVRowWords : kVRowWords;
   const unsigned mA = __byte_perm(m0, m1, 0x5410),
                  mB = __byte_perm(m2, m3, 0x5410);
+  // Costs are in [0, 159] (C <= 32, delta <= P2 <= 127), so with P1
+  // clamped to 160 (the same t for every P1 >= 160) every half of
+  // dp_step16 stays in 16 bits.
   const unsigned p1p1 = __byte_perm(min(p1, 160), min(p1, 160), 0x5410);
   const unsigned p2p2 = __byte_perm(p2, p2, 0x5410);
   unsigned A = 0, B = 0, cA, cB;

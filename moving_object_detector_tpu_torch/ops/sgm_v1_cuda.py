@@ -32,6 +32,58 @@ CENSUS_TILE_W = 128
 # The widest row whose two words a pixel the WTA keeps in a block's shared
 # memory; wider rows keep them in global memory.
 WTA_SMEM_WIDTH = sgm_cuda.SMEM_PER_BLOCK // 8
+# The aggregation: steps a chunk of a warp's cost ring holds along the rows
+# and along the columns, chunks a ring holds, lines a block (two warps
+# each), and the largest P2 whose deltas (in [0, P2]) the staged variant
+# keeps as bytes.
+AGG_ROW_STEPS = 32
+AGG_COL_STEPS = 8
+AGG_RING_BUFS = 2
+AGG_MAX_STRIP = 8
+AGG_DELTA8_MAX_P2 = 255
+
+
+def agg_smem_bytes(length: int, strip: int, vertical: bool,
+                   staged: bool) -> int:
+    """Shared memory of an aggregation block: each warp's ring (the column
+    launch's staged variant rings the total beside the cost), then, staged,
+    a byte delta a disparity for each cell of the strip's lines."""
+    step = 3 * D if vertical and staged else D
+    steps = AGG_COL_STEPS if vertical else AGG_ROW_STEPS
+    ring = 2 * strip * AGG_RING_BUFS * steps * step
+    return ring + (strip * length * D if staged else 0)
+
+
+def agg_plan(h: int, w: int, p2: int, sms: int):
+    """((strip, staged) of the row launch, (strip, staged) of the column
+    launch) for an (h, w) volume on a card of ``sms`` SMs. A row launch
+    block takes one row. A column launch block takes the fewest columns
+    that let its blocks fit the SMs once, at most AGG_MAX_STRIP, and fewer
+    where their deltas would not fit shared memory. Staged needs P2 <=
+    AGG_DELTA8_MAX_P2 and a strip of one line to fit; otherwise a launch
+    takes the read-modify-write variant."""
+    lim = sgm_cuda.SMEM_PER_BLOCK
+    small = p2 <= AGG_DELTA8_MAX_P2
+    row = (1, small and agg_smem_bytes(w, 1, False, True) <= lim)
+    strip = max(1, min(AGG_MAX_STRIP, -(-w // sms)))
+    fit = strip
+    while fit > 0 and agg_smem_bytes(h, fit, True, True) > lim:
+        fit -= 1
+    col = (fit, True) if small and fit > 0 else (strip, False)
+    return row, col
+
+
+def _widest(vertical: bool) -> int:
+    n = 1
+    while agg_smem_bytes(n + 1, 1, vertical, True) <= sgm_cuda.SMEM_PER_BLOCK:
+        n += 1
+    return n
+
+
+# The longest rows and columns whose deltas a block stages; longer lines
+# take the read-modify-write variant.
+AGG_SMEM_WIDTH = _widest(False)
+AGG_SMEM_HEIGHT = _widest(True)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,7 +97,7 @@ def _lib():
     if not _typed:
         lib.sgm1_census.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
         lib.sgm1_cost.argtypes = [_P, _P, _P, _I, _I, _P]
-        lib.sgm1_aggregate.argtypes = [_P, _P, _I, _I, _I, _I, _I, _I, _P]
+        lib.sgm1_aggregate.argtypes = [_P, _P] + [_I] * 7 + [_P]
         lib.sgm1_wta.argtypes = [_P, _P, _P, _I, _I, _I, _I, _F, _P]
         for name in LAUNCHES:
             getattr(lib, name).restype = _I
@@ -143,14 +195,21 @@ def cost_volume(cl: torch.Tensor, cr: torch.Tensor) -> torch.Tensor:
 
 
 def _aggregate_pass(cost: torch.Tensor, total: torch.Tensor, p1: int,
-                    p2: int, vertical: bool, accumulate: bool) -> None:
+                    p2: int, vertical: bool, plan=None) -> None:
     """One launch of the aggregation kernel: both directions along the
-    rows, or along the columns with ``vertical``; stores into ``total``
-    or, with ``accumulate``, adds to what it holds."""
+    rows, storing into ``total``, or along the columns with ``vertical``,
+    adding to it. ``plan`` overrides ``agg_plan``'s (strip, staged) of the
+    launch, for timing it."""
     h, w = cost.shape[:2]
+    if plan is None:
+        sms = torch.cuda.get_device_properties(
+            cost.device).multi_processor_count
+        plan = agg_plan(h, w, p2, sms)[int(vertical)]
+    strip, staged = plan
     _launched(_lib().sgm1_aggregate(cost.data_ptr(), total.data_ptr(), h, w,
-                                    p1, p2, int(vertical), int(accumulate),
-                                    _stream()), "sgm1_aggregate")
+                                    p1, p2, int(vertical), strip,
+                                    int(staged), _stream()),
+              "sgm1_aggregate")
 
 
 def aggregate(cost: torch.Tensor, p1: int, p2: int) -> torch.Tensor:
@@ -165,10 +224,12 @@ def aggregate(cost: torch.Tensor, p1: int, p2: int) -> torch.Tensor:
     if not (p1 >= 0 and p2 >= 0 and 4 * (127 + p2) < 32768):
         raise ValueError(f"P1={p1}, P2={p2}: four path sums of up to "
                          "127 + P2 must fit int16")
+    if cost.data_ptr() % 16:  # the kernel copies 16-byte pieces
+        cost = cost.clone()
     h, w = cost.shape[:2]
     total = torch.empty((h, w, D), dtype=torch.int16, device=cost.device)
-    _aggregate_pass(cost, total, p1, p2, vertical=False, accumulate=False)
-    _aggregate_pass(cost, total, p1, p2, vertical=True, accumulate=True)
+    _aggregate_pass(cost, total, p1, p2, vertical=False)
+    _aggregate_pass(cost, total, p1, p2, vertical=True)
     return total
 
 

@@ -1,14 +1,17 @@
 """Inputs on which the tiled connected-components kernel, the staged
-horizontal and vertical SGM DPs and the tiled census kernel could go
-wrong, shared by the CPU tests against the JAX package
-(test_torch_dp_cc_redesign.py, test_torch_vdp_census_redesign.py), the
+horizontal and vertical SGM DPs, the tiled census kernel, the v1 SGM
+aggregation and the cluster-stats kernel could go wrong, shared by the CPU
+tests against the JAX package (test_torch_dp_cc_redesign.py,
+test_torch_vdp_census_redesign.py, test_torch_v1dp_stats_redesign.py), the
 card tests against the plain versions (test_torch_kernels_gpu.py) and
-chip_smoke.py. numpy only: no JAX.
+chip_smoke.py. numpy and torch only: no JAX.
 """
 
 import numpy as np
+import torch
 
 from moving_object_detector_tpu_torch.ops import (
+    cluster_stats_cuda,
     clustering_cuda,
     sgm_cuda,
     sgm_v1_cuda,
@@ -154,3 +157,127 @@ def census_pair(case):
             img[(u >= 0.18) & (u < 0.22)] = -0.0
             img[(u >= 0.22) & (u < 0.26)] = 0.0
     return left, right
+
+
+# The v1 aggregation walks each line both ways in steps copied
+# AGG_ROW_STEPS (along a row) or AGG_COL_STEPS (down a column) at a time
+# into a ring of AGG_RING_BUFS chunks, the two walks meeting in the
+# middle; it keeps byte deltas in shared memory up to AGG_SMEM_WIDTH /
+# AGG_SMEM_HEIGHT and P2 <= AGG_DELTA8_MAX_P2, and reads and rewrites the
+# total in global memory beyond. (h, w, p1, p2, kind); kind "hamming"
+# (costs 0 .. 32, as the cost kernel gives them) or "int8" (any int8,
+# negative ones clipped to 0 on read). Lengths 1, 2, odd, at and around a
+# chunk and the ring (a walk's half of the line); widths and heights on
+# both sides of the shared-memory limits (lines of a few pixels across);
+# the (P1, P2) pairs of the serving point, P1 = P2 = 0, P2 > 255, P1 > P2
+# (clamped to P2 in the kernel) and the int16 limit, and P2 on both sides
+# of the byte deltas' limit.
+RS, CS = sgm_v1_cuda.AGG_ROW_STEPS, sgm_v1_cuda.AGG_COL_STEPS
+AB = sgm_v1_cuda.AGG_RING_BUFS
+AGG_WIDE, AGG_TALL = sgm_v1_cuda.AGG_SMEM_WIDTH, sgm_v1_cuda.AGG_SMEM_HEIGHT
+P2_BYTE = sgm_v1_cuda.AGG_DELTA8_MAX_P2
+AGG_PENALTIES = ((10, 120), (0, 0), (3, 500), (200, 120), (10, 8063))
+AGG_CASES = [
+    (1, 1, 10, 120, "int8"),
+    (2, 2, 0, 0, "int8"),
+    (1, 2 * RS + 1, 10, 8063, "hamming"),
+    (CS, RS, 200, 120, "int8"),
+    (CS + 1, 2 * RS * AB - 1, 3, 500, "int8"),
+    (2 * CS * AB - 1, RS + 1, 10, 120, "hamming"),
+    (2 * CS * AB + 1, 2 * RS * AB, 10, 120, "int8"),
+    (4 * CS * AB + 3, 37, 10, 8063, "int8"),
+    (5, 33, 10, P2_BYTE, "int8"),
+    (5, 33, 10, P2_BYTE + 1, "int8"),
+    (2, AGG_WIDE, 10, 120, "hamming"),
+    (2, AGG_WIDE + 1, 10, 120, "hamming"),
+    (AGG_TALL, 2, 10, 120, "hamming"),
+    (AGG_TALL + 1, 2, 10, 120, "hamming"),
+]
+# Small enough for the JAX package's Pallas kernel in interpret mode.
+AGG_PALLAS_CASES = [c for c in AGG_CASES if c[0] * c[1] <= 40 * 40]
+# The serving shape (SGM at half of 376 x 1242) and the full frame, whose
+# column launch takes fewer columns a block than the card's strip.
+AGG_SERVING = (188, 621)
+AGG_FULL = (376, 1242)
+
+
+def agg_cost(h, w, kind, seed=0):
+    """An (h, w, 128) int8 cost volume of an aggregation case."""
+    rng = np.random.default_rng(seed + h * 7919 + w)
+    if kind == "hamming":
+        return rng.integers(0, 33, (h, w, 128)).astype(np.int8)
+    return rng.integers(-128, 128, (h, w, 128)).astype(np.int8)
+
+
+# The cluster-stats kernel takes 32 adjacent pixels of a row a warp,
+# STATS_THREADS a block, and up to MAX_CAP slots. name: (h, w, cap, kind).
+STATS_THREADS = cluster_stats_cuda.STATS_THREADS
+CAP = cluster_stats_cuda.MAX_CAP
+STATS_CASES = {
+    "cap_1": (9, 70, 1, "components"),
+    "cap_32": (23, 97, CAP, "components"),
+    "repeated_roots": (17, 45, 8, "repeated"),
+    "all_slots_unused": (12, 40, 6, "unused"),
+    "one_cluster_over_the_image": (31, 83, 4, "whole"),
+    "signed_zeros_and_nan_members": (14, 66, 8, "zeros_nan"),
+    "strided_crop_of_points": (21, 57, 16, "crop"),
+    # h * w = 7 * 45 = 315: not a multiple of the block, 45 not of a warp.
+    "not_a_multiple_of_the_block": (7, 45, 5, "components"),
+}
+
+
+def stats_case(name):
+    """(labels (h, w) int32, points (h, w, 3) f32, roots (cap,) int32) of
+    a stats case, from a seed. Labels are CC-style (a component's label
+    is a member's flat index, h * w the background); points outside the
+    selected clusters are NaN; "crop" gives points as a strided view into
+    a larger frame."""
+    h, w, cap, kind = STATS_CASES[name]
+    n = h * w
+    rng = np.random.default_rng(h * 131 + w)
+    if kind == "whole":
+        labels = np.zeros((h, w), np.int32)
+        comp = np.array([0], np.int32)
+    else:
+        n_comp = max(cap + 3, 6)
+        comp = np.sort(rng.choice(n, n_comp, replace=False)).astype(np.int32)
+        flat = np.full((n,), n, np.int32)
+        assign = rng.integers(0, n_comp + 1, n)  # n_comp: background
+        for i, r in enumerate(comp):
+            flat[assign == i] = r
+            flat[r] = r
+        labels = flat.reshape(h, w)
+    roots = np.full((cap,), n, np.int32)
+    k = 0 if kind == "unused" else min(cap, comp.size)
+    roots[:k] = comp[:k]
+    if kind == "repeated":  # slots 0 / 3 and 1 / 6 repeat; 7 unused
+        roots[3], roots[6], roots[7] = roots[0], roots[1], n
+    big = rng.normal(0, 4, (h + 6, w + 9, 3)).astype(np.float32)
+    points = big[2:2 + h, 5:5 + w] if kind == "crop" else big[:h, :w].copy()
+    member = np.isin(labels, roots[roots < n])
+    points[~member] = np.nan
+    if kind == "zeros_nan":
+        # x >= 0 and y <= 0 with +0.0 and -0.0 among them: every slot's
+        # min x and max y is a zero of either sign.
+        u = rng.random((h, w))
+        points[..., 0] = np.abs(points[..., 0])
+        points[..., 1] = -np.abs(points[..., 1])
+        points[member & (u < 0.3), 0] = 0.0
+        points[member & (u >= 0.7), 0] = -0.0
+        points[member & (u < 0.2), 1] = -0.0
+        points[member & (u >= 0.6), 1] = 0.0
+        ys, xs = np.nonzero(labels == roots[2])
+        points[ys[0], xs[0], 2] = np.nan  # slot 2's z: NaN
+    return labels, points, roots
+
+
+def on_device(points, device):
+    """``points`` on ``device`` with its strides: a view into a copy of
+    its base array where it is one (the strided crop)."""
+    if points.base is None or points.flags.c_contiguous:
+        return torch.from_numpy(np.ascontiguousarray(points)).to(device)
+    base = torch.from_numpy(points.base).to(device)
+    offset = (points.__array_interface__["data"][0]
+              - points.base.__array_interface__["data"][0])
+    return base.as_strided(points.shape, [s // 4 for s in points.strides],
+                           offset // 4)

@@ -26,11 +26,19 @@ from moving_object_detector_tpu_torch.ops import (
     sgm_v1_cuda,
 )
 from dp_cc_cases import (
+    AGG_CASES,
+    AGG_FULL,
+    AGG_PENALTIES,
+    AGG_SERVING,
     CC_CASES,
     CENSUS_CASES,
     DP_CASES,
+    STATS_CASES,
     VDP_CASES,
+    agg_cost,
     census_pair,
+    on_device,
+    stats_case,
 )
 
 pytestmark = pytest.mark.gpu
@@ -297,6 +305,38 @@ def test_sgm_v1_path_equals_v2_path_bitwise(cuda, h, w):
     assert float((v1 >= 0).float().mean()) > 0.5
 
 
+@pytest.mark.parametrize("h,w,p1,p2,kind", AGG_CASES)
+def test_sgm_v1_aggregate_edge_cases_equal_plain(cuda, h, w, p1, p2, kind):
+    """Lengths 1, 2, odd and around the ring's chunks, lines on both sides
+    of the shared-memory limits, P2 on both sides of the byte deltas'
+    limit, negative int8 costs: bitwise."""
+    cost = torch.from_numpy(agg_cost(h, w, kind)).to(cuda)
+    assert torch.equal(sgm_v1_cuda.aggregate(cost, p1, p2),
+                       sgm.aggregate_cost_volume(cost, p1, p2))
+
+
+@pytest.mark.parametrize("p1,p2", AGG_PENALTIES)
+@pytest.mark.parametrize("shape", [AGG_SERVING, AGG_FULL])
+def test_sgm_v1_aggregate_serving_and_full_frame_equal_plain(cuda, shape,
+                                                             p1, p2):
+    cost = torch.from_numpy(agg_cost(*shape, "int8")).to(cuda)
+    assert torch.equal(sgm_v1_cuda.aggregate(cost, p1, p2),
+                       sgm.aggregate_cost_volume(cost, p1, p2))
+
+
+@pytest.mark.parametrize("staged", [True, False])
+def test_sgm_v1_aggregate_blocks_wider_than_the_image(cuda, staged):
+    """A strip of AGG_MAX_STRIP lines a block over fewer lines than that:
+    the warps past the image walk nothing and still meet the barrier."""
+    h, w = 11, 5
+    cost = torch.from_numpy(agg_cost(h, w, "int8")).to(cuda)
+    total = torch.empty((h, w, 128), dtype=torch.int16, device=cuda)
+    strip = sgm_v1_cuda.AGG_MAX_STRIP
+    sgm_v1_cuda._aggregate_pass(cost, total, 10, 120, False, (strip, staged))
+    sgm_v1_cuda._aggregate_pass(cost, total, 10, 120, True, (strip, staged))
+    assert torch.equal(total, sgm.aggregate_cost_volume(cost, 10, 120))
+
+
 def test_sgm_v1_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     cost = torch.zeros((4, 8, 128), dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match="int16"):
@@ -532,6 +572,74 @@ def test_cluster_stats_kernel_propagates_a_nan_member(cuda, axis):
     for corner in (out[1], out[2]):
         assert bool(torch.isnan(corner[1, axis]))
         assert int(torch.isnan(corner).sum()) == 1
+
+
+def _stats_equal(out, ref):
+    """cid and csize equal, mins and maxs equal by value with NaN in the
+    same places (a zero may carry either sign)."""
+    return (torch.equal(out[0], ref[0]) and torch.equal(out[3], ref[3])
+            and _equal_with_nans(out[1], ref[1])
+            and _equal_with_nans(out[2], ref[2]))
+
+
+def _stats_inputs(cuda, case):
+    labels, points, roots = stats_case(case)
+    return (torch.from_numpy(labels).to(cuda), on_device(points, cuda),
+            torch.from_numpy(roots).to(cuda))
+
+
+@pytest.mark.parametrize("case", sorted(STATS_CASES))
+def test_cluster_stats_kernel_edge_cases_equal_plain(cuda, case):
+    labels, points, roots = _stats_inputs(cuda, case)
+    before = cluster_stats_cuda.LAUNCHES["cluster_stats"]
+    out = cluster_stats_cuda.cluster_stats(labels, points, roots)
+    assert cluster_stats_cuda.LAUNCHES["cluster_stats"] == before + 1
+    assert _stats_equal(out, cluster_stats.cluster_stats(labels, points,
+                                                         roots))
+
+
+def test_cluster_stats_kernel_back_to_back_and_on_two_streams(cuda):
+    """The accumulator the kernel's blocks meet in is left zeroed for the
+    next call, and each stream has its own: calls in a row, and calls on
+    two streams at once, each equal to its plain version."""
+    cases = [_stats_inputs(cuda, c) for c in sorted(STATS_CASES)]
+    refs = [cluster_stats.cluster_stats(*c) for c in cases]
+    for _ in range(3):
+        outs = [cluster_stats_cuda.cluster_stats(*c) for c in cases]
+        assert all(_stats_equal(o, r) for o, r in zip(outs, refs))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(4):
+        for k, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                for c in cases[k::2]:
+                    outs[k].append(cluster_stats_cuda.cluster_stats(*c))
+    torch.cuda.synchronize()
+    for k in range(2):
+        mine = refs[k::2] * 4
+        assert all(_stats_equal(o, r) for o, r in zip(outs[k], mine))
+
+
+def test_cluster_stats_kernel_at_the_full_frame(cuda):
+    h, w, cap = 376, 1242, 32
+    dyn, depth = _cc_case("random", h, w)
+    labels = clustering_cuda.connected_components(
+        torch.from_numpy(dyn).to(cuda), torch.from_numpy(depth).to(cuda),
+        0.15, neighbor_distance=4)
+    found, sizes = torch.unique(labels[labels < h * w], return_counts=True)
+    roots = torch.full((cap,), h * w, dtype=torch.int32, device=cuda)
+    k = min(cap - 4, found.numel())
+    roots[:k] = found[torch.argsort(sizes, descending=True)][:k].to(
+        torch.int32)
+    points = torch.randn(h, w, 3, device=cuda)
+    out = cluster_stats_cuda.cluster_stats(labels, points, roots)
+    assert _stats_equal(out, cluster_stats.cluster_stats(labels, points,
+                                                         roots))
+    assert int(out[3].sum()) > 0
+    # The four outputs are views of one allocation.
+    base = out[0].untyped_storage().data_ptr()
+    assert all(o.untyped_storage().data_ptr() == base for o in out)
 
 
 @pytest.mark.parametrize("h,w", [(376, 1242), (125, 350)])
