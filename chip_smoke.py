@@ -30,10 +30,15 @@
    edge cases (lengths around its ring's chunks, lines on both sides of
    its shared-memory limits, P2 on both sides of its byte deltas' limit,
    negative costs) and at the serving shape and the full frame for five
-   (P1, P2) pairs; the cluster stats on their edge cases (cap 1 and 32,
-   repeated roots, no slot used, one cluster over the image, signed zeros
-   and NaN members, a strided crop), three times in a row, on two streams
-   at once and at the full frame, and must be one kernel a call.
+   (P1, P2) pairs; the v1 cost volume and WTA at the full frame and on
+   their edge cases (widths 1, below D and around the cost kernel's
+   segment, census words with all 32 bits different; ties over d and in
+   the right view, minima at d = 0, 1, 126, 127, an offset of +0.5, x <
+   best, negative and extreme totals, for every flag combination); the
+   cluster stats on their edge cases (cap 1 and 32, repeated roots, no
+   slot used, one cluster over the image, signed zeros and NaN members, a
+   strided crop), three times in a row, on two streams at once and at the
+   full frame, and must be one kernel a call.
 3. Runs ``pipeline.detect_step`` at the KITTI serving point (376 x 1242,
    pwc_v7 weights, flow and SGM at half resolution, two-window clusterer
    crop, default backends: windowed gather, CC and cluster-stats kernels)
@@ -390,12 +395,7 @@ def check_wide_rows(dev) -> None:
     for w in v1_widths:
         total = torch.randint(0, 600, (2, w, sgm_v1_cuda.D), device=dev,
                               generator=g, dtype=torch.int16)
-        for subpixel, lr in ((True, True), (False, True), (True, False)):
-            out = sgm_v1_cuda.wta(total, subpixel, lr, 1.0)
-            ref = sgm.wta_from_total(total, subpixel, lr, 1.0)
-            if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
-                raise AssertionError(f"sgm1_wta differs at 2x{w} "
-                                     f"subpixel={subpixel} lr={lr}")
+        check_v1_wta(sgm, sgm_v1_cuda, total, f"2x{w}")
     w = sgm_cuda.DP_SMEM_WIDTH + 1
     cl, cr = torch.randint(0, 1 << 24, (2, 2, w), device=dev, generator=g,
                            dtype=torch.int32)
@@ -433,12 +433,7 @@ def check_sgm_v1_kernels(dev, report):
         total = sgm_v1_cuda.aggregate(cost, 10, 120)
         if not torch.equal(total, sgm.aggregate_cost_volume(cost, 10, 120)):
             raise AssertionError(f"sgm1_aggregate differs at {h}x{w}")
-        for subpixel, lr in ((True, True), (False, True), (True, False)):
-            disp = sgm_v1_cuda.wta(total, subpixel, lr, 1.0)
-            ref = sgm.wta_from_total(total, subpixel, lr, 1.0)
-            if not torch.equal(disp.view(torch.int32), ref.view(torch.int32)):
-                raise AssertionError(f"sgm1_wta differs at {h}x{w} "
-                                     f"subpixel={subpixel} lr={lr}")
+        check_v1_wta(sgm, sgm_v1_cuda, total, f"{h}x{w}")
         n_valid = int((sgm_v1_cuda.wta(total) >= 0).sum())
         if not 0.5 * h * w < n_valid < h * w:
             raise AssertionError(f"sgm v1 check is vacuous: {n_valid} valid")
@@ -448,6 +443,7 @@ def check_sgm_v1_kernels(dev, report):
             serving = (h, w, left, right, cl, cr, cost, total)
     check_census_cases(dev, sgm, sgm_v1_cuda)
     check_aggregate_cases(dev, sgm, sgm_v1_cuda)
+    check_cost_wta_cases(dev, sgm, sgm_v1_cuda)
 
     h, w, left, right, cl, cr, cost, total = serving
     n = h * w
@@ -497,6 +493,60 @@ def check_sgm_v1_kernels(dev, report):
             source="moving_object_detector_tpu_torch/csrc/sgm_v1.cu",
             replaces=replaces, max_abs_err=0.0, **timed(kern, plain),
             bound_ms=bms, bound_by=by, library_ms=None)
+
+
+V1_WTA_FLAGS = ((True, True), (False, True), (True, False), (False, False))
+
+
+def check_v1_wta(sgm, sgm_v1_cuda, total, what: str) -> None:
+    """sgm1_wta against its plain version, bitwise, for all four
+    (subpixel, lr_check) pairs."""
+    for subpixel, lr in V1_WTA_FLAGS:
+        disp = sgm_v1_cuda.wta(total, subpixel, lr, 1.0)
+        ref = sgm.wta_from_total(total, subpixel, lr, 1.0)
+        if not torch.equal(disp.view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError(f"sgm1_wta differs at {what} "
+                                 f"subpixel={subpixel} lr={lr}")
+
+
+def check_cost_wta_cases(dev, sgm, sgm_v1_cuda) -> None:
+    """sgm1_cost and sgm1_wta against their plain versions at the full
+    frame and on the cases of tests/dp_cc_cases.py: the cost at widths 1,
+    below D and around its segment of COST_TX pixels, a height of 1,
+    census words with all 32 bits different beside x < d; the WTA on ties
+    over d and in the right view, minima at d = 0, 1, 126, 127, an offset
+    of exactly +0.5, x < best, negative totals and the int16 extremes, for
+    all four (subpixel, lr_check) pairs with lr_max_diff 0 and 1."""
+    from dp_cc_cases import (COST_CASES, WTA_V1_CASES, WTA_V1_FLAGS,
+                             cost_pair, wta_total)
+
+    rng = np.random.default_rng(9)
+    left = torch.tensor(rng.uniform(0, 1, (H, W)), dtype=torch.float32,
+                        device=dev)
+    right = torch.roll(left, -9, 1) + 0.02 * torch.randn(H, W, device=dev)
+    cl, cr = sgm_v1_cuda.census_pair(left, right)
+    cost = sgm_v1_cuda.cost_volume(cl, cr)
+    if not torch.equal(cost.to(torch.int32), sgm.hamming_cost(cl, cr, 128)):
+        raise AssertionError(f"sgm1_cost differs at {H}x{W}")
+    check_v1_wta(sgm, sgm_v1_cuda, sgm_v1_cuda.aggregate(cost, 10, 120),
+                 f"{H}x{W}")
+    for case, (_, _, window, _) in sorted(COST_CASES.items()):
+        left, right = (torch.from_numpy(x).to(dev) for x in cost_pair(case))
+        cl, cr = sgm_v1_cuda.census_pair(left, right, window)
+        if not torch.equal(sgm_v1_cuda.cost_volume(cl, cr).to(torch.int32),
+                           sgm.hamming_cost(cl, cr, 128)):
+            raise AssertionError(f"sgm1_cost differs on {case}")
+    for case in sorted(WTA_V1_CASES):
+        total = torch.from_numpy(wta_total(case)).to(dev)
+        for subpixel, lr, md in WTA_V1_FLAGS:
+            disp = sgm_v1_cuda.wta(total, subpixel, lr, md)
+            ref = sgm.wta_from_total(total, subpixel, lr, md)
+            if not torch.equal(disp.view(torch.int32), ref.view(torch.int32)):
+                raise AssertionError(f"sgm1_wta differs on {case} subpixel="
+                                     f"{subpixel} lr={lr} lr_max_diff={md}")
+    log(f"sgm1_cost and sgm1_wta bitwise equal to plain at {H}x{W}, on "
+        f"{len(COST_CASES)} cost and {len(WTA_V1_CASES)} WTA edge cases "
+        f"({len(WTA_V1_FLAGS)} flag combinations)")
 
 
 def sms(dev) -> int:

@@ -31,9 +31,16 @@
 //   stores are one coalesced word a lane. 0.0027 ms for a 188 x 621 pair
 //   against 0.0094 for the former one launch a view, a thread a pixel
 //   (NVIDIA H100 80GB HBM3, 700 W).
-// - sgm1_cost: the bytes of the volume it writes. One warp per pixel, lane
-//   l holds disparities 4 l .. 4 l + 3 and stores them as one char4, so a
-//   warp writes 128 contiguous bytes.
+// - sgm1_cost: the popcounts (14.9 M at 188 x 621, 16 a clock an SM:
+//   about 0.004 ms) beside the bytes of the volume it writes (0.0047 ms).
+//   A block stages the census words of a 64-pixel segment of a row and
+//   the 191 right words they meet once; a lane takes a pixel and 16
+//   disparities, its right words consecutive across the warp (no bank
+//   conflicts, no address arithmetic), and the segment's 8 KB leave
+//   through a swizzled shared tile as one coalesced 16-byte store a lane.
+//   0.0078 ms at 188 x 621 against 0.0137 for the former design, a warp
+//   a pixel whose four gathers a lane touched 16 sectors for 128 useful
+//   bytes (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W).
 // - sgm1_aggregate: latency along the scan, as the v2 DP, and the bytes of
 //   the int16 total. A scan's time is its length times one step, so only
 //   the recurrence stays on a step's chain: the costs come from a
@@ -55,16 +62,21 @@
 //   all against 0.43 for the former design, which walked each line with
 //   one warp a direction, loads on the chain, and added into the total
 //   from both walks of both launches.
-// - sgm1_wta: the bytes of the int16 volume, read once and coalesced. One
-//   block per image row, one warp per pixel, lane l holding disparities
-//   l, l + 32, l + 64, l + 96. The right view needs total(x + d, d) for
-//   every right pixel: instead of gathering it (2-byte reads 258 bytes
-//   apart), each left pixel pushes its packed values into a row of shared
-//   memory with atomicMin (rv[x - d] = min(total * 128 + d)); min is
-//   order-free, so the result is deterministic. A second phase, one thread
-//   per pixel, does the LR check from shared memory. A row wider than a
-//   block's shared memory holds (two words a pixel, opted in above 48 KB)
-//   keeps both rows in global memory instead: no width is refused.
+// - sgm1_wta: instruction issue, beside the bytes of the int16 volume
+//   (29.9 MB at 188 x 621: 0.0089 ms), read once, 16 bytes a lane. One
+//   block of 512 threads per image row, 8 lanes a pixel, the next four
+//   pixels' loads in flight while a warp reduces the current four. The
+//   right view needs total(x + d, d) for every right pixel: instead of
+//   gathering it (2-byte reads 258 bytes apart), each left pixel pushes
+//   its packed values into a padded row of shared memory with atomicMin
+//   (min(total * 128 + d) a right pixel; min is order-free, so the result
+//   is deterministic), the pad of each cell known at compile time for 12
+//   of a lane's 16. A second phase, one thread per pixel, does the LR
+//   check. A row wider than a block's shared memory holds (25,828
+//   pixels) keeps both rows in global memory instead: no width is
+//   refused. 0.0156 ms at 188 x 621 against 0.0692 for the former design,
+//   a warp a pixel with three full-warp reductions on each pixel's chain
+//   (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 // -fPIC -fmad=false. -fmad=false keeps the subpixel float math bitwise
@@ -93,12 +105,6 @@ constexpr int kAggColSteps = 8;
 constexpr int kAggRingBufs = 2;
 constexpr int kAggMaxStrip = 8;   // lines a block, two warps each
 constexpr int kDelta8MaxP2 = 255;  // a delta in [0, P2] fits a byte
-
-__device__ __forceinline__ int warp_min(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
 
 // Bit i (row-major over the window, centre skipped) is set where neighbour
 // i is darker than the centre; neighbours outside the image are staged as
@@ -186,24 +192,92 @@ __global__ void __launch_bounds__(kCensusThreads)
   }
 }
 
-// One warp per pixel: cost(y, x, d) = popcount(cl(x) ^ cr(x - d)), 32 for
-// x < d.
-__global__ void cost_kernel(const int* __restrict__ cl,
-                            const int* __restrict__ cr,
-                            int8_t* __restrict__ cost, int n, int W) {
+// Index of word i of a padded shared line: 4 pad words every 16. In the
+// WTA, eight lanes a pixel, lane l on disparities 16 l .. 16 l + 15, and
+// four adjacent pixels p a warp push to right pixels a + p - 16 l - i for
+// one i at a time: sw maps them to sw(a + p) - 20 l (mod 32), 32 distinct
+// banks (p sets the bank mod 4, the eight l the multiples of 4).
+__host__ __device__ constexpr int sw(int i) { return i + ((i >> 4) << 2); }
+
+// Word sw(s - i) of a padded line, s - i >= 0: the 16 words s - 15 .. s
+// lie in the 16-word run of s and the one before it.
+__device__ __forceinline__ int* sw_back(int* line, int s, int i) {
+  return line + sw(s) - i - ((s & 15) < i ? 4 : 0);
+}
+
+// Cost: a block takes kCostTX adjacent pixels of one row. It stages their
+// left census words and the kCostTX + 127 right words they are compared
+// with in shared memory, once. A warp then takes 32 adjacent pixels, a
+// lane each, for one chunk q of 16 disparities: the lanes' right words
+// x - d are consecutive words (no conflicts, no address arithmetic: each
+// of the 16 reads is the lane's base minus a constant). Right pixels left
+// of the image (x < d) are told by position and cost kMaxCost, as in the
+// plain version: no census value stands for them. The lane's 16 bytes go
+// into a (kCostTX, 8) tile of 16-byte units, unit q of pixel j at
+// j * 8 + (q ^ (j & 7)), so that each 8 lanes of a store, and each 8
+// lanes of the read-out, hit 32 banks. The tile is then the volume's
+// kCostTX * 128 contiguous bytes from (y, x0): one 16-byte store a lane,
+// coalesced, not evict-first (the aggregation reads the volume next and
+// it fits L2).
+constexpr int kCostTX = 64;
+constexpr int kCostThreads = 128;
+
+__global__ void __launch_bounds__(kCostThreads)
+    cost_kernel(const int* __restrict__ cl, const int* __restrict__ cr,
+                int8_t* __restrict__ cost, int W, int segs) {
+  __shared__ int s_cr[kCostTX + kD - 1];
+  __shared__ int s_cl[kCostTX];
+  __shared__ uint4 tile[kCostTX * 8];
+  const int y = blockIdx.x / segs;
+  const int x0 = (blockIdx.x - y * segs) * kCostTX;
+  const size_t row = static_cast<size_t>(y) * W;
+  // Staged word k is right pixel x0 - 127 + k; those left of the image
+  // are never read as costs, zero keeps them defined.
+  for (int k = threadIdx.x; k < kCostTX + kD - 1; k += kCostThreads) {
+    const int x = x0 - (kD - 1) + k;
+    s_cr[k] = x >= 0 && x < W ? cr[row + x] : 0;
+  }
+  for (int k = threadIdx.x; k < kCostTX; k += kCostThreads) {
+    s_cl[k] = x0 + k < W ? cl[row + x0 + k] : 0;
+  }
+  __syncthreads();
+
   const int lane = threadIdx.x & 31;
-  const int pix = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (pix >= n) return;
-  const int x = pix % W;
-  const int c = cl[pix];
-  const int d0 = lane * 4;
-  const int c0 = x >= d0 ? __popc(c ^ cr[pix - d0]) : kMaxCost;
-  const int c1 = x >= d0 + 1 ? __popc(c ^ cr[pix - d0 - 1]) : kMaxCost;
-  const int c2 = x >= d0 + 2 ? __popc(c ^ cr[pix - d0 - 2]) : kMaxCost;
-  const int c3 = x >= d0 + 3 ? __popc(c ^ cr[pix - d0 - 3]) : kMaxCost;
-  *reinterpret_cast<char4*>(cost + static_cast<size_t>(pix) * kD + d0) =
-      make_char4(static_cast<signed char>(c0), static_cast<signed char>(c1),
-                 static_cast<signed char>(c2), static_cast<signed char>(c3));
+  // Task t: chunk q = t / (kCostTX / 32) of pixel j, lane j % 32.
+  for (int t = threadIdx.x >> 5; t < kCostTX / 4; t += kCostThreads / 32) {
+    const int j = 32 * (t % (kCostTX / 32)) + lane;
+    const int q = t / (kCostTX / 32);
+    const int x = x0 + j;
+    const int c = s_cl[j];
+    const int* right = s_cr + j + kD - 1 - 16 * q;  // right pixel x - 16 q
+    unsigned cv[16];
+    if (x >= 16 * q + 15) {  // every candidate in the image
+#pragma unroll
+      for (int i = 0; i < 16; ++i) cv[i] = __popc(c ^ right[-i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        cv[i] = x >= 16 * q + i ? __popc(c ^ right[-i]) : kMaxCost;
+      }
+    }
+    unsigned words[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      words[k] = __byte_perm(__byte_perm(cv[4 * k], cv[4 * k + 1], 0x0040),
+                             __byte_perm(cv[4 * k + 2], cv[4 * k + 3], 0x0040),
+                             0x5410);
+    }
+    tile[j * 8 + (q ^ (j & 7))] =
+        make_uint4(words[0], words[1], words[2], words[3]);
+  }
+  __syncthreads();
+
+  const int units = min(kCostTX, W - x0) * 8;
+  uint4* dst = reinterpret_cast<uint4*>(cost + (row + x0) * kD);
+  for (int u = threadIdx.x; u < units; u += kCostThreads) {
+    const int j = u >> 3;
+    dst[u] = tile[j * 8 + ((u & 7) ^ (j & 7))];
+  }
 }
 
 // Aggregation. The four paths L = C + delta of the plain version, with
@@ -409,57 +483,138 @@ __global__ void __launch_bounds__(64 * kAggMaxStrip)
   cp_async_wait<0>();
 }
 
-// One block per image row. STAGED: dynamic shared memory, 2 W words (the
-// right view's packed minimum, the disparity before the LR check, -1 where
-// x < best: a valid disparity is >= 0). Otherwise both live in global
-// memory, the packed minimum in the row of `scratch` (global atomicMin,
-// the same order-free minimum), the disparity in the row of `out` (read
-// back through L2 after the barrier).
-template <bool STAGED>
-__global__ void wta_kernel(const int16_t* __restrict__ total, float* out,
-                           int* scratch, int H, int W, int subpixel,
-                           int lr_check, float lr_max_diff) {
-  extern __shared__ int smem[];
-  const int y = blockIdx.x;
+// Minimum over the 8 lanes that share a pixel.
+__device__ __forceinline__ int group_min(int v) {
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+// Word k of a lane's eight for a k known at run time, without indexing
+// the register array (which would put it in local memory): 7 selects.
+__device__ __forceinline__ int pick8(const int (&w)[8], int k) {
+  int a[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) a[m] = k & 1 ? w[2 * m + 1] : w[2 * m];
+  const int b0 = k & 2 ? a[1] : a[0];
+  const int b1 = k & 2 ? a[3] : a[2];
+  return k & 4 ? b1 : b0;
+}
+
+// WTA: one block of kWtaThreads per image row, four pixels a warp, eight
+// lanes a pixel: lane l reads disparities 16 l .. 16 l + 15 as two 16-byte
+// evict-first loads (the total is read once), and a warp issues the next
+// four pixels' loads before it reduces the current ones. The packed
+// minimum total * 128 + d (signed: the lowest d wins a tie, totals may be
+// negative) is taken over the lane's 16 values in registers, then over
+// the 8 lanes in 3 shuffles; each subpixel neighbour total(best -+ 1)
+// comes from the lane that holds it, one shuffle of the word that holds
+// it. Right view: each cell is candidate d of right pixel x - d, pushed
+// with atomicMin into a row of packed minima (min is order-free, so the
+// result is deterministic). STAGED: dynamic shared memory, in words: that
+// row, padded by sw (a warp's 32 atomics hit 32 banks), then the
+// disparity before the LR check (W words, -1 where x < best: a valid
+// disparity is >= 0). Otherwise both live in global memory, the packed
+// minima in the row of `scratch` (global atomicMin, unpadded), the
+// disparity in the row of `out` (read back through L2 after the barrier).
+// A second phase, a thread a pixel, does the LR check.
+//
+// The kernel is bound by instruction issue, so the padded cell of right
+// pixel s - i, sw(s) - i - (4 where i > s & 15), is not computed per
+// candidate: a warp's groups start at pixels 4 warp + 64 n, so s & 15 =
+// R0 + p with R0 = 4 warp & 15 fixed for the warp and p = lane >> 3. With
+// R0 a template argument the pad term is known at compile time for 12 of
+// the 16 candidates and a lane constant for the other 4. Groups with a
+// candidate left of the image or a pixel past the row's end take the
+// generic code.
+constexpr int kWtaThreads = 512;
+constexpr int kWtaWarps = kWtaThreads / 32;
+
+template <bool STAGED, int R0>
+__device__ __forceinline__ void wta_groups(const int16_t* __restrict__ total,
+                                           size_t row, int W, int* best_r,
+                                           float* sdisp, int subpixel,
+                                           int lr_check) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const size_t row = static_cast<size_t>(y) * W;
-  int* rv = STAGED ? smem : scratch + row;
-  float* sdisp = STAGED ? reinterpret_cast<float*>(smem + W) : out + row;
-
-  for (int x = threadIdx.x; x < W; x += blockDim.x) rv[x] = kHuge;
-  __syncthreads();
-
-  for (int x = warp; x < W; x += nwarps) {
-    const int16_t* p = total + (row + x) * kD;
-    int t[4];
-    int packed = kHuge;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int d = lane + 32 * k;
-      t[k] = p[d];
-      const int pk = t[k] * kD + d;
-      packed = min(packed, pk);
-      // Right view: this cell is candidate d of right pixel x - d.
-      if (lr_check && x >= d) atomicMin(&rv[x - d], pk);
+  const int p = lane >> 3;
+  const int l = lane & 7;
+  const int d0 = 16 * l;
+  // Pixel xg + p; past the row's end a lane repeats the last pixel: the
+  // same values go into the same cells again, which neither a min nor a
+  // store of an equal value notices, and the warp stays whole for the
+  // shuffles.
+  const int4* vol = reinterpret_cast<const int4*>(total + row * kD) + 2 * l;
+  auto pixel = [&](int xg) { return min(xg + p, W - 1); };
+  int xg = 4 * (threadIdx.x >> 5);
+  int4 qa = make_int4(0, 0, 0, 0), qb = qa;
+  if (xg < W) {
+    qa = __ldcs(vol + pixel(xg) * (kD / 8));
+    qb = __ldcs(vol + pixel(xg) * (kD / 8) + 1);
+  }
+  // The pad terms of candidates R0 + 1 .. R0 + 3 (see above).
+  const int off1 = p < 1 ? -4 : 0, off2 = p < 2 ? -4 : 0,
+            off3 = p < 3 ? -4 : 0;
+  for (; xg < W; xg += 4 * kWtaWarps) {
+    const int x = pixel(xg);
+    const int w[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+    const int next = xg + 4 * kWtaWarps;
+    if (next < W) {
+      qa = __ldcs(vol + pixel(next) * (kD / 8));
+      qb = __ldcs(vol + pixel(next) * (kD / 8) + 1);
     }
-    const int run = warp_min(packed);
+    // pk[i] = total(d) * 128 + d, d = d0 + i: the low half of word k is
+    // candidate 2 k, the high half 2 k + 1.
+    int pk[16];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      pk[2 * k] = static_cast<int16_t>(w[k]) * kD + (d0 + 2 * k);
+      pk[2 * k + 1] = (w[k] >> 16) * kD + (d0 + 2 * k + 1);
+    }
+    int m = pk[0];
+#pragma unroll
+    for (int i = 1; i < 16; ++i) m = min(m, pk[i]);
+    if (lr_check) {
+      // Candidate d0 + i of right pixel s - i.
+      const int s = x - d0;
+      if (STAGED && R0 >= 0 && xg >= kD - 1 && xg + 3 < W) {
+        int* cell = best_r + sw(s);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int pad = i <= R0 ? 0
+                          : i > R0 + 3 ? -4
+                          : i == R0 + 1 ? off1
+                          : i == R0 + 2 ? off2
+                                        : off3;
+          atomicMin(cell + pad - i, pk[i]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          if (s >= i) {
+            atomicMin(STAGED ? sw_back(best_r, s, i) : best_r + s - i,
+                      pk[i]);
+          }
+        }
+      }
+    }
+    const int run = group_min(m);
     const int best = run & (kD - 1);
-    const int c0 = run >> 7;
-    int cm = kHuge, cp = kHuge;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int d = lane + 32 * k;
-      if (d == best - 1) cm = t[k];
-      if (d == best + 1) cp = t[k];
+    int cm = 0, cp = 0;  // read only for 0 < best < 127
+    if (subpixel) {
+      // Disparity d is half d & 1 of word (d & 15) >> 1 of lane d >> 4.
+      const int group = lane & ~7;
+      const int jm = (best - 1) & 15, jp = (best + 1) & 15;
+      const int wm = __shfl_sync(kFull, pick8(w, jm >> 1),
+                                 group | (((best - 1) >> 4) & 7));
+      const int wp = __shfl_sync(kFull, pick8(w, jp >> 1),
+                                 group | (((best + 1) >> 4) & 7));
+      cm = jm & 1 ? wm >> 16 : static_cast<int16_t>(wm);
+      cp = jp & 1 ? wp >> 16 : static_cast<int16_t>(wp);
     }
-    cm = warp_min(cm);
-    cp = warp_min(cp);
-    if (lane == 0) {
+    if (l == 0) {
       float disp = static_cast<float>(best);
       if (subpixel && best > 0 && best < kD - 1) {
-        const float fc0 = static_cast<float>(c0);
+        const float fc0 = static_cast<float>(run >> 7);
         const float fcm = static_cast<float>(cm);
         const float fcp = static_cast<float>(cp);
         const float denom = fcm - 2.0f * fc0 + fcp;
@@ -471,24 +626,58 @@ __global__ void wta_kernel(const int16_t* __restrict__ total, float* out,
       sdisp[x] = x >= best ? disp : -1.0f;
     }
   }
+}
+
+template <bool STAGED>
+__global__ void __launch_bounds__(kWtaThreads, 2)
+    wta_kernel(const int16_t* __restrict__ total, float* out, int* scratch,
+               int W, int subpixel, int lr_check, float lr_max_diff) {
+  extern __shared__ int smem[];
+  const size_t row = static_cast<size_t>(blockIdx.x) * W;
+  int* best_r = STAGED ? smem : scratch + row;
+  float* sdisp = STAGED ? reinterpret_cast<float*>(smem + sw(W - 1) + 1)
+                        : out + row;
+  if (lr_check) {
+    for (int x = threadIdx.x; x < W; x += kWtaThreads) {
+      best_r[STAGED ? sw(x) : x] = kHuge;
+    }
+  }
+  __syncthreads();
+  switch (STAGED ? 4 * (threadIdx.x >> 5) & 15 : -1) {  // R0 of this warp
+    case 0:
+      wta_groups<STAGED, 0>(total, row, W, best_r, sdisp, subpixel, lr_check);
+      break;
+    case 4:
+      wta_groups<STAGED, 4>(total, row, W, best_r, sdisp, subpixel, lr_check);
+      break;
+    case 8:
+      wta_groups<STAGED, 8>(total, row, W, best_r, sdisp, subpixel, lr_check);
+      break;
+    case 12:
+      wta_groups<STAGED, 12>(total, row, W, best_r, sdisp, subpixel,
+                             lr_check);
+      break;
+    default:
+      wta_groups<STAGED, -1>(total, row, W, best_r, sdisp, subpixel,
+                             lr_check);
+  }
   __syncthreads();
 
-  for (int x = threadIdx.x; x < W; x += blockDim.x) {
+  for (int x = threadIdx.x; x < W; x += kWtaThreads) {
     const float disp = STAGED ? sdisp[x] : __ldcg(sdisp + x);
     bool valid = disp >= 0.0f;
     if (lr_check && valid) {
       const int xr = static_cast<int>(rintf(static_cast<float>(x) - disp));
       const int xc = min(max(xr, 0), W - 1);
-      const int best_r = (STAGED ? rv[xc] : __ldcg(rv + xc)) & (kD - 1);
+      const int best_r_xc = (STAGED ? best_r[sw(xc)] : __ldcg(best_r + xc)) &
+                            (kD - 1);
       valid = xr >= 0 &&
-              fabsf(disp - static_cast<float>(best_r)) <= lr_max_diff;
+              fabsf(disp - static_cast<float>(best_r_xc)) <= lr_max_diff;
     }
     out[row + x] = valid ? disp : -1.0f;
   }
 }
 
-constexpr int kCostThreads = 256;  // 8 pixels per block
-constexpr int kWtaThreads = 256;
 constexpr int kSmemPerBlock = 232448;  // bytes a block may opt in to
 
 // Opts a kernel in to `smem` bytes of dynamic shared memory where that is
@@ -535,14 +724,17 @@ int sgm1_census(const void* left, const void* right, void* out_l,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The cost must be 16-byte aligned. One block per kCostTX pixels of a
+// row, the segments of a row in turn: a 1-D grid takes any height.
 int sgm1_cost(const void* cl, const void* cr, void* cost, int H, int W,
               void* stream) {
-  const int n = H * W;
-  const int per_block = kCostThreads / 32;
-  cost_kernel<<<(n + per_block - 1) / per_block, kCostThreads, 0,
+  if (reinterpret_cast<uintptr_t>(cost) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int segs = (W + kCostTX - 1) / kCostTX;
+  cost_kernel<<<H * segs, kCostThreads, 0,
                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(cl), static_cast<const int*>(cr),
-      static_cast<int8_t*>(cost), n, W);
+      static_cast<int8_t*>(cost), W, segs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -576,18 +768,22 @@ int sgm1_aggregate(const void* cost, void* total, int H, int W, int p1,
   return static_cast<int>(cudaGetLastError());
 }
 
-// scratch: null for rows whose two words a pixel fit a block's shared
-// memory, else H x W int32 of global memory for the right view.
+// scratch: null for rows whose padded right-view row and disparity fit a
+// block's shared memory (sw(W - 1) + 1 + W words), else H x W int32 of
+// global memory for the right view. The total must be 16-byte aligned.
 int sgm1_wta(const void* total, void* out, void* scratch, int H, int W,
              int subpixel, int lr_check, float lr_max_diff, void* stream) {
   const bool staged = scratch == nullptr;
-  const size_t smem = staged ? static_cast<size_t>(W) * 2 * sizeof(int) : 0;
+  const size_t smem =
+      staged ? (static_cast<size_t>(sw(W - 1)) + 1 + W) * sizeof(int) : 0;
+  if (smem > kSmemPerBlock || reinterpret_cast<uintptr_t>(total) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = staged ? wta_kernel<true> : wta_kernel<false>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<H, kWtaThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(total), static_cast<float*>(out),
-      static_cast<int*>(scratch), H, W, subpixel, lr_check, lr_max_diff);
+      static_cast<int*>(scratch), W, subpixel, lr_check, lr_max_diff);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -29,9 +29,27 @@ LAUNCHES = {"sgm1_census": 0, "sgm1_cost": 0, "sgm1_aggregate": 0,
 # lane.
 CENSUS_TILE_H = 8
 CENSUS_TILE_W = 128
-# The widest row whose two words a pixel the WTA keeps in a block's shared
-# memory; wider rows keep them in global memory.
-WTA_SMEM_WIDTH = sgm_cuda.SMEM_PER_BLOCK // 8
+# The cost kernel: pixels of a row a block takes, and its threads (a lane
+# a pixel and 16 disparities).
+COST_TX = 64
+COST_THREADS = 128
+
+
+def sw(i: int) -> int:
+    """Word of right pixel ``i`` in the WTA's padded shared row: 4 pad
+    words every 16."""
+    return i + ((i >> 4) << 2)
+
+
+def wta_smem_bytes(w: int) -> int:
+    """Shared memory of a staged WTA block for a row of ``w`` pixels: the
+    right view's packed minima padded by ``sw``, then the disparity."""
+    return 4 * (sw(w - 1) + 1 + w)
+
+
+# The widest row the WTA keeps in a block's shared memory; wider rows keep
+# it in global memory.
+WTA_SMEM_WIDTH = sgm_cuda._widest(wta_smem_bytes)
 # The aggregation: steps a chunk of a warp's cost ring holds along the rows
 # and along the columns, chunks a ring holds, lines a block (two warps
 # each), and the largest P2 whose deltas (in [0, P2]) the staged variant
@@ -240,6 +258,8 @@ def wta(total: torch.Tensor, subpixel: bool = True, lr_check: bool = True,
     if total.device.type == "cpu":
         return sgm.wta_from_total(total, subpixel, lr_check, lr_max_diff)
     total = _check_volume(total, torch.int16, "the aggregated total")
+    if total.data_ptr() % 16:  # the kernel reads 16-byte pieces
+        total = total.clone()
     h, w = total.shape[:2]
     out = torch.empty((h, w), dtype=torch.float32, device=total.device)
     scratch = (torch.empty((h, w), dtype=torch.int32, device=total.device)

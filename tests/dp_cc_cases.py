@@ -1,9 +1,10 @@
 """Inputs on which the tiled connected-components kernel, the staged
 horizontal and vertical SGM DPs, the tiled census kernel, the v1 SGM
-aggregation and the cluster-stats kernel could go wrong, shared by the CPU
-tests against the JAX package (test_torch_dp_cc_redesign.py,
-test_torch_vdp_census_redesign.py, test_torch_v1dp_stats_redesign.py), the
-card tests against the plain versions (test_torch_kernels_gpu.py) and
+aggregation, cost and WTA kernels and the cluster-stats kernel could go
+wrong, shared by the CPU tests against the JAX package
+(test_torch_dp_cc_redesign.py, test_torch_vdp_census_redesign.py,
+test_torch_v1dp_stats_redesign.py, test_torch_v1cost_wta_redesign.py),
+the card tests against the plain versions (test_torch_kernels_gpu.py) and
 chip_smoke.py. numpy and torch only: no JAX.
 """
 
@@ -13,6 +14,7 @@ import torch
 from moving_object_detector_tpu_torch.ops import (
     cluster_stats_cuda,
     clustering_cuda,
+    sgm,
     sgm_cuda,
     sgm_v1_cuda,
 )
@@ -207,6 +209,114 @@ def agg_cost(h, w, kind, seed=0):
     if kind == "hamming":
         return rng.integers(0, 33, (h, w, 128)).astype(np.int8)
     return rng.integers(-128, 128, (h, w, 128)).astype(np.int8)
+
+
+# The v1 cost kernel takes COST_TX adjacent pixels of a row a block and
+# compares each with the 128 right pixels x - d, x - d < 0 costing 32.
+# name: (h, w, census window, kind); kind "shifted" (the right view the
+# left one shifted by 9 px, with noise) or "complement" (the right view
+# the negated left one shifted by 5 px: with a 1 x 33 window, 32
+# neighbours, every pixel whose window lies inside the image costs
+# popcount 32 at d = 5, beside the 32 of x < d). Widths 1, below D,
+# around a block (COST_TX - 1, COST_TX, COST_TX + 1) and over two blocks
+# past D; a height of 1.
+TX = sgm_v1_cuda.COST_TX
+COST_CASES = {
+    "width_1": (3, 1, (5, 5), "shifted"),
+    "height_1": (1, 150, (5, 5), "shifted"),
+    "width_37_below_d": (5, 37, (5, 5), "shifted"),
+    "width_tx_minus_1": (4, TX - 1, (5, 5), "shifted"),
+    "width_tx": (4, TX, (5, 5), "shifted"),
+    "width_tx_plus_1": (4, TX + 1, (5, 5), "shifted"),
+    "three_blocks_past_d": (6, 2 * TX + 29, (5, 5), "shifted"),
+    "all_32_bits_differ": (3, 140, (1, 33), "complement"),
+}
+
+
+def cost_pair(case):
+    """(left, right) f32 images of a cost case, from a seed."""
+    h, w, _, kind = COST_CASES[case]
+    rng = np.random.default_rng(h * 1000 + w)
+    left = rng.uniform(0, 1, (h, w)).astype(np.float32)
+    if kind == "complement":
+        return left, -np.roll(left, -5, axis=1)
+    right = np.roll(left, -9, axis=1) + rng.normal(0, 0.02, (h, w))
+    return left, right.astype(np.float32)
+
+
+# The v1 WTA takes four pixels a warp, eight lanes a pixel, and packs
+# total * 128 + d (the lowest d wins a tie); its subpixel neighbours come
+# from the lane that holds best -+ 1, its right view from atomics into a
+# padded row. name: (h, w, kind), an (h, w, 128) int16 total each:
+# - "ties": totals 0..2, ties over d everywhere;
+# - "best_at_0_1_126_127": the minimum at d = 0, 1, 126, 127 in turn;
+# - "right_flat": total(best + 1) = total(best), so the offset is exactly
+#   +0.5 and x - disp lies at .5 (rint rounds half to even; the lowest-d
+#   tie rule keeps total(best - 1) above the minimum, so the parabola's
+#   denominator is >= 1 and never at or below 1e-6);
+# - "x_below_best": minima at d >= 100, so x < best over most of the row;
+# - "negative": totals in [-2000, 0);
+# - "int16_extremes": -32768, -32767, 32766, 32767 beside random values
+#   (at a width of 128, where the Pallas kernel pads no column: its pad
+#   total of 20000 would beat larger right-view candidates);
+# - "right_view_ties": total(x, d) a function of x - d, so that every
+#   right pixel's candidates tie (noise breaks some ties);
+# - "aggregated_pair": the plain aggregation of a shifted random pair.
+WTA_V1_CASES = {
+    "ties": (8, 150, "ties"),
+    "best_at_0_1_126_127": (8, 150, "edges"),
+    "right_flat": (8, 150, "right_flat"),
+    "x_below_best": (8, 150, "far"),
+    "negative": (8, 150, "negative"),
+    "int16_extremes": (8, 128, "extremes"),
+    "right_view_ties": (8, 150, "right_ties"),
+    "aggregated_pair": (8, 150, "aggregated"),
+}
+# (subpixel, lr_check, lr_max_diff)
+WTA_V1_FLAGS = [(sub, lr, md) for sub in (True, False) for lr in (True, False)
+                for md in (0.0, 1.0)]
+
+
+def wta_total(case):
+    """The (h, w, 128) int16 total of a WTA case, from a seed."""
+    h, w, kind = WTA_V1_CASES[case]
+    rng = np.random.default_rng(h * 1000 + w + len(kind))
+    d = np.arange(128)
+    if kind == "ties":
+        return rng.integers(0, 3, (h, w, 128)).astype(np.int16)
+    if kind == "negative":
+        return rng.integers(-2000, 0, (h, w, 128)).astype(np.int16)
+    if kind == "extremes":
+        tot = rng.integers(-32768, 32768, (h, w, 128))
+        pick = rng.random((h, w, 128))
+        for k, v in enumerate((-32768, -32767, 32766, 32767)):
+            tot[(pick >= 0.1 * k) & (pick < 0.1 * (k + 1))] = v
+        tot[:, 1::5] = 32767  # every candidate at the top
+        return tot.astype(np.int16)
+    if kind == "right_ties":
+        x = np.arange(w)[:, None]
+        tot = np.broadcast_to(((x - d) % 7) * 10 + 100, (h, w, 128)).copy()
+        noise = rng.random((h, w, 128)) < 0.03
+        tot[noise] = rng.integers(80, 160, int(noise.sum()))
+        return tot.astype(np.int16)
+    if kind == "aggregated":
+        left = rng.uniform(0, 1, (h, w)).astype(np.float32)
+        right = (np.roll(left, -7, axis=1)
+                 + rng.normal(0, 0.02, (h, w))).astype(np.float32)
+        cl = sgm.census_transform(torch.from_numpy(left))
+        cr = sgm.census_transform(torch.from_numpy(right))
+        return sgm.aggregate_cost_volume(sgm.hamming_cost(cl, cr, 128), 10,
+                                         120).numpy()
+    tot = rng.integers(200, 400, (h, w, 128))
+    best = {"edges": np.array([0, 1, 126, 127])[np.arange(w) % 4],
+            "right_flat": rng.integers(1, 127, w),
+            "far": rng.integers(100, 128, w)}[kind]
+    cols = np.arange(w)
+    tot[:, cols, best] = 50
+    if kind == "right_flat":
+        tot[:, cols, best + 1] = 50
+        tot[:, cols, best - 1] = 50 + rng.integers(1, 30, (h, w))
+    return tot.astype(np.int16)
 
 
 # The cluster-stats kernel takes 32 adjacent pixels of a row a warp,

@@ -32,13 +32,18 @@ from dp_cc_cases import (
     AGG_SERVING,
     CC_CASES,
     CENSUS_CASES,
+    COST_CASES,
     DP_CASES,
     STATS_CASES,
     VDP_CASES,
+    WTA_V1_CASES,
+    WTA_V1_FLAGS,
     agg_cost,
     census_pair,
+    cost_pair,
     on_device,
     stats_case,
+    wta_total,
 )
 
 pytestmark = pytest.mark.gpu
@@ -182,9 +187,9 @@ def test_sgm_wta_takes_arbitrary_int8_volumes_and_refuses_wide_rows(cuda):
                                sgm_v1_cuda.WTA_SMEM_WIDTH + 1])
 def test_sgm_v1_wta_takes_wide_rows(cuda, w):
     """Past the old ceiling of 4096 (the shared memory opted in above 48
-    KB), at 19,000, at the widest staged row and at the first width past
-    the shared-memory limit (the global-memory variant): bitwise equal to
-    the plain version."""
+    KB), at 19,000, at the widest staged row (its right view padded by 4
+    words every 16) and at the first width past the shared-memory limit
+    (the global-memory variant): bitwise equal to the plain version."""
     total = torch.randint(0, 600, (2, w, 128), dtype=torch.int16,
                           device=cuda)
     for subpixel, lr in ((True, True), (False, True), (True, False)):
@@ -279,7 +284,7 @@ def test_sgm_v1_aggregate_kernel_equals_plain(cuda, h, w, p1, p2):
 
 
 @pytest.mark.parametrize("subpixel,lr_check", [(True, True), (False, True),
-                                               (True, False)])
+                                               (True, False), (False, False)])
 @pytest.mark.parametrize("h,w", V1_SHAPES)
 def test_sgm_v1_wta_kernel_bitwise_equal_plain(cuda, h, w, subpixel,
                                                lr_check):
@@ -292,6 +297,60 @@ def test_sgm_v1_wta_kernel_bitwise_equal_plain(cuda, h, w, subpixel,
         out = sgm_v1_cuda.wta(vol, subpixel, lr_check, 1.0)
         ref = sgm.wta_from_total(vol, subpixel, lr_check, 1.0)
         assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", sorted(COST_CASES))
+def test_sgm_v1_cost_edge_cases_equal_plain(cuda, case):
+    """Widths 1, below D and around the kernel's segment of COST_TX
+    pixels, a height of 1, census words with all 32 bits different beside
+    x < d: one launch, equal to the plain version."""
+    _, _, window, _ = COST_CASES[case]
+    left, right = (torch.from_numpy(x).to(cuda) for x in cost_pair(case))
+    cl, cr = sgm.census_transform(left, window), sgm.census_transform(
+        right, window)
+    before = sgm_v1_cuda.LAUNCHES["sgm1_cost"]
+    cost = sgm_v1_cuda.cost_volume(cl, cr)
+    assert sgm_v1_cuda.LAUNCHES["sgm1_cost"] == before + 1
+    assert torch.equal(cost.to(torch.int32), sgm.hamming_cost(cl, cr, 128))
+
+
+@pytest.mark.parametrize("subpixel,lr_check,lr_max_diff", WTA_V1_FLAGS)
+@pytest.mark.parametrize("case", sorted(WTA_V1_CASES))
+def test_sgm_v1_wta_edge_cases_bitwise_equal_plain(cuda, case, subpixel,
+                                                   lr_check, lr_max_diff):
+    """Ties over d and in the right view, minima at d = 0, 1, 126, 127, an
+    offset of exactly +0.5, x < best, negative totals, the int16 extremes:
+    one launch, bitwise equal to the plain version."""
+    tot = torch.from_numpy(wta_total(case)).to(cuda)
+    before = sgm_v1_cuda.LAUNCHES["sgm1_wta"]
+    out = sgm_v1_cuda.wta(tot, subpixel, lr_check, lr_max_diff)
+    assert sgm_v1_cuda.LAUNCHES["sgm1_wta"] == before + 1
+    ref = sgm.wta_from_total(tot, subpixel, lr_check, lr_max_diff)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+def test_sgm_v1_cost_and_wta_at_the_full_frame(cuda):
+    """376 x 1242 (the serving point before the SGM's scale of 2): the cost
+    kernel equal to the plain version, the WTA bitwise for all four
+    (subpixel, lr_check) pairs, also on a total that starts 2 bytes into
+    its storage (the wrapper copies it to the 16-byte alignment the kernel
+    reads with)."""
+    left, right = _v1_pair(cuda, 376, 1242)
+    cl, cr = sgm.census_transform(left), sgm.census_transform(right)
+    cost = sgm_v1_cuda.cost_volume(cl, cr)
+    assert torch.equal(cost.to(torch.int32), sgm.hamming_cost(cl, cr, 128))
+    total = sgm.aggregate_cost_volume(cost, 10, 120)
+    flat = torch.empty(total.numel() + 1, dtype=torch.int16, device=cuda)
+    shifted = flat[1:].view(total.shape)
+    shifted.copy_(total)
+    assert shifted.data_ptr() % 16 == 2
+    for vol in (total, shifted):
+        for subpixel in (True, False):
+            for lr_check in (True, False):
+                out = sgm_v1_cuda.wta(vol, subpixel, lr_check, 1.0)
+                ref = sgm.wta_from_total(vol, subpixel, lr_check, 1.0)
+                assert torch.equal(out.view(torch.int32),
+                                   ref.view(torch.int32))
 
 
 @pytest.mark.parametrize("h,w", V1_SHAPES[:3])

@@ -79,12 +79,14 @@ def test_vertical_strip_fills_the_card_once():
 def test_wide_row_limits_fit_the_shared_memory_of_a_block():
     """Up to WTA_SMEM_WIDTH the WTAs stage a row in shared memory, beyond
     it they take their global-memory variant (on the card:
-    test_torch_kernels_gpu.py). The v1 WTA holds two words a pixel."""
+    test_torch_kernels_gpu.py). The v1 WTA holds its right view's row,
+    padded by 4 words every 16, and the disparity."""
     lim, w = sgm_cuda.SMEM_PER_BLOCK, sgm_cuda.WTA_SMEM_WIDTH
     assert sgm_cuda.wta_smem_bytes(w) <= lim < sgm_cuda.wta_smem_bytes(w + 1)
     assert w > 8192  # the old ceiling, now staged
     w1 = sgm_v1_cuda.WTA_SMEM_WIDTH
-    assert 8 * w1 <= lim < 8 * (w1 + 1)
+    assert (sgm_v1_cuda.wta_smem_bytes(w1) <= lim
+            < sgm_v1_cuda.wta_smem_bytes(w1 + 1))
     assert w1 > 19000
 
 
