@@ -4,7 +4,7 @@
 
 1. Builds the CUDA kernels from ``moving_object_detector_tpu_torch/csrc``
    (one nvcc per source, in parallel) and prints the build seconds.
-2. Holds each of the twelve kernels against its plain PyTorch version on
+2. Holds each of the thirteen kernels against its plain PyTorch version on
    the card, at the serving shapes and at an odd shape: the SGM deltas and
    disparity bitwise (v2; the WTA for every combination of ``subpixel``,
    ``lr_check`` and ``uniqueness_ratio``, also at a width below 128, at
@@ -15,7 +15,14 @@
    NaN positions equal, the connected components exactly on six kinds of
    input (three runs each), the cluster stats exactly (min / max by
    value; a NaN member coordinate gives NaN), the fused scene-flow
-   construct with exact NaN masks and values within 1e-5. Prints each
+   construct with exact NaN masks and values within 1e-5 (also on the
+   edge cases of ``tests/sceneflow_cases.py``: every residue of W mod 4,
+   odd pixel counts, 1 x 1, 1 x 5, 3 x 7, matches on the window's edges,
+   NaN and +-inf flow, an unaligned input), ego-motion's Gauss-Newton
+   solve on correspondences of a known motion at the RANSAC's two shapes
+   (4 x 512 points within 1e-5, 64 x 3 within 1e-4 on the sound triples
+   of ``tests/gauss_newton_cases.py``), timed at every block
+   size. Prints each
    kernel's time and its plain version's time (CUDA events, median after
    warm-up), the correlation's per pyramid level and at its smallest
    case (the launch floor). Both SGM DPs are also held at the edge shapes
@@ -47,7 +54,8 @@
    Checks shapes, finiteness, the known strip disparities and the patch's
    flow, and that every kernel of this path launched on it: a frame, the
    census kernel once (both views), each SGM v2 kernel once, the
-   correlation four times, the plain census never. Prints
+   correlation four times, the Gauss-Newton kernel three times (six on a
+   frame that takes the LK fallback), the plain census never. Prints
    ms/frame, pairs/s and per-stage ms.
 4. Runs the same frames with the gather, CC and stats in their plain
    forms and requires identical detections, label images and overflow;
@@ -58,10 +66,15 @@
    that the clusterer takes its two-window branch (CC and stats launch
    twice a frame), and 6 frames with ``gather_backend="fused"``, which must
    launch the fused kernel once a frame, the gather never, and give the
-   default path's detections.
+   default path's detections. Repeats every RANSAC of the serving frames
+   on the Gauss-Newton kernel and on the plain solve with one draw of
+   hypotheses (the same success, the motion within 1e-4), then forces
+   the LK fallback on 4 frames (``lk_fallback_frac=1.01``: six
+   Gauss-Newton launches a frame, the motion within 1e-4 of the same
+   frames with the plain solve).
 6. Profiles three serving frames with torch.profiler: device busy time
-   per frame, kernel launches per frame, the kernels with the most device
-   time.
+   per frame, kernel launches per frame, ego-motion's host ms, launches
+   and device ms a frame alone, the kernels with the most device time.
 7. Runs the same 12 frames through ``io.runner.PipelineRunner`` (feeder
    thread, frame ring, pinned upload, harvest a frame behind) with
    ``sgm.backend="pallas_v1"``: each of the four v1 kernels must launch
@@ -124,6 +137,13 @@ ODD_H, ODD_W = 125, 350
 PLAIN_CC_ITERS = 1 << 14  # rounds enough for the plain fixpoint to converge
 OPS_PER_EDGE_TEST = 6  # 2 loads, subtract, abs, 2 compares (CC)
 OPS_PER_FUSED_PIXEL = 100  # about 60 f32 operations and 10 divisions
+# Gauss-Newton, per point and iteration: transform 18, projection and
+# residual 12, Jacobian 76, J^T W J and J^T W r 108, selects 10; per
+# problem and iteration: the 6 x 6 Cholesky and substitutions, the
+# exponential and the 4 x 4 product, about 400.
+OPS_PER_GN_POINT = 224
+OPS_PER_GN_SOLVE = 400
+TOL_GN_MOTION = 1e-4  # ego-motion on the GN kernel against the plain solve
 
 
 def log(msg: str) -> None:
@@ -1055,20 +1075,7 @@ def check_fused_kernel(dev, report):
         args = [torch.from_numpy(x).to(dev) for x in (d_now, d_prev, flow)]
         out = sceneflow_cuda.scene_flow_fused_cuda(*args, params)
         ref = sceneflow_cuda.scene_flow_fused(*args, params)
-        names = ("points", "velocity", "static_flow")
-        # 1e-5 relative; the static flow is a difference of pixel
-        # coordinates, so its 1e-5 is relative to the frame's extent.
-        for name, a, b, scale in zip(names, out, ref,
-                                     (0.0, 0.0, float(max(h, w)))):
-            if not torch.equal(torch.isnan(a), torch.isnan(b)):
-                raise AssertionError(f"fused {name} NaN masks differ at "
-                                     f"{h}x{w}")
-            a, b = torch.nan_to_num(a), torch.nan_to_num(b)
-            diff = (a - b).abs()
-            if not bool((diff <= 1e-5 * (b.abs() + scale) + 1e-30).all()):
-                raise AssertionError(
-                    f"fused {name} differs at {h}x{w}: max {diff.max()}")
-            err = max(err, float(diff.max()))
+        err = max(err, check_fused_close(out, ref, f"{h}x{w}"))
         vel = out[1]
         n_vel = int(torch.isfinite(vel[..., 0]).sum())
         n_dyn = int((torch.nan_to_num(vel).abs().sum(-1) > 0).sum())
@@ -1079,6 +1086,7 @@ def check_fused_kernel(dev, report):
             f"equal, {n_vel} pixels with velocity, {n_dyn} dynamic")
         if serving is None:
             serving = (args, params)
+    check_fused_cases(dev, sceneflow_cuda)
     args, params = serving
     n = H * W
     bms, by = bound_ms(48 * n, OPS_PER_FUSED_PIXEL * n)
@@ -1093,11 +1101,135 @@ def check_fused_kernel(dev, report):
         bound_ms=bms, bound_by=by, library_ms=None)
 
 
+def check_fused_close(out, ref, what: str) -> float:
+    """Raise unless the fused construct's three outputs have the plain
+    version's NaN masks and values within 1e-5 relative; the static flow
+    is a difference of pixel coordinates, so its 1e-5 is relative to the
+    frame's extent. Returns the largest difference."""
+    err = 0.0
+    scale = float(max(out[0].shape[:2]))
+    for name, a, b, sc in zip(("points", "velocity", "static_flow"), out,
+                              ref, (0.0, 0.0, scale)):
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            raise AssertionError(f"fused {name} NaN masks differ on {what}")
+        a, b = torch.nan_to_num(a), torch.nan_to_num(b)
+        diff = (a - b).abs()
+        if not bool((diff <= 1e-5 * (b.abs() + sc) + 1e-30).all()):
+            raise AssertionError(
+                f"fused {name} differs on {what}: max {diff.max()}")
+        err = max(err, float(diff.max()))
+    return err
+
+
+def check_fused_cases(dev, sceneflow_cuda) -> None:
+    """The fused construct against its plain version on the cases of
+    tests/sceneflow_cases.py (every residue of W mod 4, odd pixel counts,
+    1 x 1, 1 x 5, 3 x 7, matches on the window's edges, NaN and +-inf
+    flow), and once from an input that is not 16-byte aligned."""
+    from sceneflow_cases import FUSED_CASES, fused_case
+
+    for name in sorted(FUSED_CASES):
+        d_now, d_prev, flow, par, vr, hr = fused_case(name)
+        args = [torch.from_numpy(x).to(dev) for x in (d_now, d_prev, flow)]
+        params = torch.from_numpy(par).to(dev)
+        ref = sceneflow_cuda.scene_flow_fused(*args, params, vr, hr)
+        shifted = torch.empty(d_now.size + 1, device=dev)[1:]
+        shifted = shifted.view(d_now.shape).copy_(args[0])
+        for now in (args[0], shifted):
+            check_fused_close(sceneflow_cuda.scene_flow_fused_cuda(
+                now, *args[1:], params, vr, hr), ref, name)
+    log(f"fused scene-flow kernel matches plain on {len(FUSED_CASES)} edge "
+        f"cases, NaN masks equal, aligned and unaligned input")
+
+
+def gn_bytes_ops(pts3d, obs_uv, weights, iters):
+    """Bytes one Gauss-Newton call must move and the operations it does."""
+    b, n = weights.shape
+    nbytes = 4 * (pts3d.numel() + obs_uv.numel() + weights.numel() + 4
+                  + 16 * b)
+    return nbytes, iters * (OPS_PER_GN_POINT * b * n + OPS_PER_GN_SOLVE * b)
+
+
+def check_gauss_newton_kernel(dev, report):
+    """The Gauss-Newton kernel against its plain version on synthetic
+    correspondences of a known motion (tests/gauss_newton_cases.py) at the
+    RANSAC's two shapes: the refinement (4 problems over 512 shared
+    points, 8 iterations) within 1e-5, the hypotheses (64 problems of 3
+    points, 5 iterations) within 1e-4 on the sound triples. Times one
+    frame's three calls, and each call at the block sizes that fit it."""
+    from gauss_newton_cases import (
+        CAM,
+        TRANS,
+        problem,
+        sound,
+    )
+    from moving_object_detector_tpu_torch.ops import gauss_newton_cuda as gn
+
+    cam = torch.tensor(CAM, device=dev)
+    calls, err = {}, 0.0
+    for shape in ("hypothesis", "refine"):
+        pts, uv, weights, iters = problem(shape)
+        args = [torch.from_numpy(x).to(dev) for x in (pts, uv, weights)]
+        args += [cam, iters]
+        out = gn.solve_pose(*args)
+        ref = gn.solve_pose_plain(*args)
+        diff = (out - ref).abs().amax((1, 2)).cpu().numpy()
+        if shape == "hypothesis":
+            keep = sound(ref.cpu().numpy(), pts, uv, weights)
+            tol = 1e-4
+        else:
+            keep = np.ones(len(diff), bool)
+            tol = 1e-5
+            t_err = float((out[:, :3, 3] - torch.tensor(
+                TRANS, device=dev)).abs().max())
+            if not t_err <= 0.02:
+                raise AssertionError(f"gauss_newton: the known translation "
+                                     f"missed by {t_err} m")
+        if keep.sum() < min(16, len(diff)) or not diff[keep].max() <= tol:
+            raise AssertionError(
+                f"gauss_newton differs from plain at the {shape} shape: "
+                f"{diff[keep].max()} (tolerance {tol}) on {keep.sum()} "
+                f"sound problems")
+        err = max(err, float(diff[keep].max()))
+        calls[shape] = args
+        log(f"gauss_newton kernel matches plain at the {shape} shape "
+            f"{tuple(weights.shape)} x {iters} iterations: max |diff| "
+            f"{diff[keep].max():.3g} on {keep.sum()} of {len(diff)} "
+            f"sound problems (all: {diff.max():.3g})")
+    hyp, refine = calls["hypothesis"], calls["refine"]
+    for threads in gn.THREADS:
+        log(f"gauss_newton refine call at {threads} threads a block: "
+            f"{device_ms(lambda: gn.solve_pose(*refine, threads=threads)):.4f}"
+            f" device ms")
+    for threads in gn.THREADS[:2]:
+        log(f"gauss_newton hypothesis call at {threads} threads a block: "
+            f"{device_ms(lambda: gn.solve_pose(*hyp, threads=threads)):.4f}"
+            f" device ms")
+
+    def frame(solve):  # a frame's three calls, as _ransac_gn_solve makes
+        solve(*hyp)
+        solve(*refine)
+        solve(*refine)
+
+    sizes = [gn_bytes_ops(*a[:3], a[4]) for a in (hyp, refine, refine)]
+    bms, by = bound_ms(sum(b for b, _ in sizes), sum(o for _, o in sizes))
+    report["gauss_newton"] = dict(
+        name="gauss_newton", route="cuda",
+        source="moving_object_detector_tpu_torch/csrc/gauss_newton.cu",
+        replaces="egomotion.py:318 _solve_pose (an XLA fori_loop, "
+                 "no Pallas kernel); 3 calls a frame",
+        max_abs_err=err,
+        **timed(lambda: frame(gn.solve_pose),
+                lambda: frame(gn.solve_pose_plain)),
+        bound_ms=bms, bound_by=by, library_ms=None)
+
+
 def run_frames(model, config, stereo, frames, dev, stage_ms=None,
-               cc_per_frame=None):
+               per_frame=None):
     """Drive ``detect_step`` over the frames from a fresh state: (outputs,
-    ms per step). ``cc_per_frame`` receives the CC launches of each
-    frame."""
+    ms per step). ``per_frame`` maps counter names (a kernel's, or
+    "lk_track" for the LK fallback's tracking calls) to lists that receive
+    each frame's count."""
     from moving_object_detector_tpu_torch.pipeline import (
         PipelineState,
         detect_step,
@@ -1108,7 +1240,7 @@ def run_frames(model, config, stereo, frames, dev, stage_ms=None,
     for k, (left, right, _) in enumerate(frames):
         lt = torch.from_numpy(left).to(dev)
         rt = torch.from_numpy(right).to(dev)
-        cc_before = read_counts()["cc"]
+        before = dict(read_counts(), lk_track=LK_CALLS[0])
         sync(dev)
         t0 = time.perf_counter()
         state, out = detect_step(model, state, lt, rt, 0.1 * k, stereo,
@@ -1116,8 +1248,9 @@ def run_frames(model, config, stereo, frames, dev, stage_ms=None,
         sync(dev)
         step_ms.append((time.perf_counter() - t0) * 1e3)
         outs.append(out)
-        if cc_per_frame is not None:
-            cc_per_frame.append(read_counts()["cc"] - cc_before)
+        after = dict(read_counts(), lk_track=LK_CALLS[0])
+        for name, counts in (per_frame or {}).items():
+            counts.append(after[name] - before[name])
     return outs, step_ms
 
 
@@ -1157,10 +1290,11 @@ def check_outputs(outs, frames, cap):
 
 
 def profile_frames(model, config, stereo, frames, dev, step_ms: float,
-                   what: str):
+                   what: str, ego: bool = False):
     """torch.profiler over the serving frames: device busy ms per frame
     (and its share of the unprofiled median ``step_ms``; the profiler
-    itself slows the host), kernel launches per frame, top kernels."""
+    itself slows the host), kernel launches per frame, with ``ego`` the
+    ego-motion stage's alone, then the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -1177,6 +1311,14 @@ def profile_frames(model, config, stereo, frames, dev, step_ms: float,
         f"= {100 * busy_ms / n / step_ms:.1f}% of the unprofiled median "
         f"{step_ms:.2f} ms/frame; {len(kernels) / n:.0f} kernel "
         f"launches/frame; profiled wall {wall_ms / n:.0f} ms/frame")
+    if ego:
+        ego_ms, ego_launches, ego_busy = profile_ego_motion(
+            model, config, stereo, frames, dev)
+        log(f"  ego-motion alone on these frames' inputs, frame by frame "
+            f"(frame 0 takes the LK fallback): host ms (synchronized) "
+            f"{[round(t, 3) for t in ego_ms]}, kernel launches "
+            f"{ego_launches}, device busy ms "
+            f"{[round(t, 3) for t in ego_busy]}")
     by_name = {}
     for e in kernels:
         t, c = by_name.get(e.name, (0.0, 0))
@@ -1191,6 +1333,20 @@ V1_ONLY_KERNELS = V1_KERNELS[1:]  # the census kernel serves both paths
 V2_SGM_KERNELS = ("sgm_vertical", "sgm_horizontal", "sgm_wta")
 
 
+def check_gauss_newton_per_frame(per_frame, what: str) -> None:
+    """Three Gauss-Newton launches on a frame that keeps the dense flow
+    (the hypotheses, two refinement passes), six on a frame that takes the
+    LK fallback (the RANSAC runs again on the LK tracks)."""
+    for k, (n_gn, n_lk) in enumerate(zip(per_frame["gauss_newton"],
+                                         per_frame["lk_track"])):
+        if n_gn != (6 if n_lk else 3):
+            raise AssertionError(
+                f"{what}: frame {k} launched gauss_newton {n_gn} times with "
+                f"{n_lk} LK fallbacks, expected {6 if n_lk else 3}")
+    if all(per_frame["lk_track"]):
+        raise AssertionError(f"{what}: no frame kept the dense flow")
+
+
 def kernel_counters():
     """Every wrapper's launch counter, by kernel name."""
     from moving_object_detector_tpu_torch.ops import (
@@ -1198,6 +1354,7 @@ def kernel_counters():
         clustering_cuda,
         flow_corr_cuda,
         gather_cuda,
+        gauss_newton_cuda,
         sceneflow_cuda,
         sgm_cuda,
         sgm_v1_cuda,
@@ -1205,7 +1362,8 @@ def kernel_counters():
 
     return (sgm_cuda.LAUNCHES, sgm_v1_cuda.LAUNCHES, flow_corr_cuda.LAUNCHES,
             gather_cuda.LAUNCHES, clustering_cuda.LAUNCHES,
-            cluster_stats_cuda.LAUNCHES, sceneflow_cuda.LAUNCHES)
+            cluster_stats_cuda.LAUNCHES, sceneflow_cuda.LAUNCHES,
+            gauss_newton_cuda.LAUNCHES)
 
 
 def reset_counts() -> None:
@@ -1216,6 +1374,37 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {k: v for c in kernel_counters() for k, v in c.items()}
+
+
+LK_CALLS = [0]  # egomotion.lk_track calls, counted by count_lk_calls
+
+
+def count_lk_calls() -> None:
+    """Count the LK fallback's tracking calls (``estimate_motion`` looks
+    ``lk_track`` up in its module at each call)."""
+    from moving_object_detector_tpu_torch import egomotion
+
+    real = egomotion.lk_track
+
+    def counted(*args, **kwargs):
+        LK_CALLS[0] += 1
+        return real(*args, **kwargs)
+
+    egomotion.lk_track = counted
+
+
+@contextlib.contextmanager
+def plain_gauss_newton():
+    """Ego-motion's Gauss-Newton solves in their plain form, on the card
+    too: the yardstick the kernel's path is held against."""
+    from moving_object_detector_tpu_torch.ops import gauss_newton_cuda as gn
+
+    real = gn.solve_pose
+    gn.solve_pose = lambda *a, **k: gn.solve_pose_plain(*a, **k)
+    try:
+        yield
+    finally:
+        gn.solve_pose = real
 
 
 def matches_outside_window(outs, sf_config) -> int:
@@ -1293,6 +1482,7 @@ def main() -> int:
 
 def run_checks_and_paths(dev, report) -> None:
     """Phases 2 to 6 of the module docstring; raises on the first failure."""
+    count_lk_calls()
     from moving_object_detector_tpu_torch import config as cfgmod
     from moving_object_detector_tpu_torch.types import StereoModel
     from moving_object_detector_tpu_torch.utils.checkpoint import (
@@ -1306,6 +1496,7 @@ def run_checks_and_paths(dev, report) -> None:
     cc_serving = check_cc_kernel(dev, report)
     check_stats_kernel(dev, report, cc_serving)
     check_fused_kernel(dev, report)
+    check_gauss_newton_kernel(dev, report)
     for r in report.values():
         log(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3g} "
             f"ms {r['ms']:.4f} (on the device {r['device_ms']:.4f}) "
@@ -1336,15 +1527,16 @@ def run_checks_and_paths(dev, report) -> None:
     sgm.census_transform = lambda *a, **k: (plain_census_calls.append(1)
                                             or plain_census(*a, **k))
     reset_counts()
-    cc_per_frame = []
+    main_per_frame = {"cc": [], "gauss_newton": [], "lk_track": []}
     try:
         outs, step_ms = run_frames(model, config, stereo, frames, dev,
-                                   cc_per_frame=cc_per_frame)
+                                   per_frame=main_per_frame)
     finally:
         sgm.census_transform = plain_census
     launches = read_counts()
     log("launches on the main path: " + json.dumps(launches)
-        + f"; cc launches per frame {cc_per_frame}")
+        + "; per frame " + json.dumps(main_per_frame))
+    check_gauss_newton_per_frame(main_per_frame, "the default path")
     if launches.pop("sceneflow_fused") != 0:
         raise AssertionError("the default path launched the fused construct")
     for name in V1_ONLY_KERNELS:
@@ -1416,8 +1608,9 @@ def run_checks_and_paths(dev, report) -> None:
         flownet=dataclasses.replace(fcfg, corr_backend="xla"))
     n_plain = len(frames[:6])
     reset_counts()
-    plain_outs, plain_ms = run_frames(model, plain, stereo, frames[:n_plain],
-                                      dev)
+    with plain_gauss_newton():
+        plain_outs, plain_ms = run_frames(model, plain, stereo,
+                                          frames[:n_plain], dev)
     if any(read_counts().values()):
         raise AssertionError(f"the plain path launched kernels: "
                              f"{read_counts()}")
@@ -1444,7 +1637,7 @@ def run_checks_and_paths(dev, report) -> None:
     reset_counts()
     cc_per_frame2 = []
     outs2, _ = run_frames(model, config, stereo, frames2, dev,
-                          cc_per_frame=cc_per_frame2)
+                          per_frame={"cc": cc_per_frame2})
     counts = read_counts()
     dets2 = [int(o.detections.valid.sum()) for o in outs2]
     log(f"two-window frames: launches {json.dumps(counts)}; cc launches "
@@ -1485,8 +1678,10 @@ def run_checks_and_paths(dev, report) -> None:
         f"default path on {n_fused} frames (velocities within 1e-4); median "
         f"{statistics.median(fused_ms[1:]):.2f} ms/frame")
 
+    check_serving_gauss_newton(model, config, stereo, frames, dev)
+    run_lk_fallback(model, config, stereo, frames[:4], dev)
     profile_frames(model, config, stereo, frames[:3], dev, med,
-                   "the serving backends")
+                   "the serving backends", ego=True)
     profile_frames(model, plain_scene, stereo, frames[:3], dev,
                    statistics.median(scene_ms[1:]),
                    "the plain gather, CC and stats")
@@ -1494,6 +1689,137 @@ def run_checks_and_paths(dev, report) -> None:
     run_v1_runner_path(model, config, stereo, frames, outs, med, dev, report)
     run_cli(frames)
     run_gnn(model, config, stereo, frames[:6], outs[:6], dev)
+
+
+def check_serving_gauss_newton(model, config, stereo, frames, dev) -> None:
+    """The Gauss-Newton kernel on the serving frames' correspondences:
+    every ``_ransac_gn_solve`` call of a run over the frames is recorded
+    and repeated with one draw of hypotheses, on the kernel and on the
+    plain solve: the same success, the motion within TOL_GN_MOTION; and
+    the hypotheses alone within 1e-4 on the sound triples."""
+    from gauss_newton_cases import sound
+    from moving_object_detector_tpu_torch import egomotion
+    from moving_object_detector_tpu_torch.ops import gauss_newton_cuda as gn
+
+    recorded = []
+    real = egomotion._ransac_gn_solve
+
+    def record(pts3d, tracked, feat_valid, cam, generator, cfg,
+               sample_idx=None):
+        recorded.append((pts3d, tracked, feat_valid, cam, cfg))
+        return real(pts3d, tracked, feat_valid, cam, generator, cfg,
+                    sample_idx)
+
+    egomotion._ransac_gn_solve = record
+    try:
+        run_frames(model, config, stereo, frames, dev)
+    finally:
+        egomotion._ransac_gn_solve = real
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    worst = worst_hyp = 0.0
+    counts, n_sound = [], 0
+    for pts3d, tracked, feat_valid, cam, cfg in recorded:
+        n = pts3d.shape[0]
+        idx = torch.multinomial(
+            torch.clamp(feat_valid.float(), min=1e-20).expand(
+                cfg.ransac_hypotheses, n), cfg.ransac_sample,
+            replacement=False, generator=gen)
+        kernel = real(pts3d, tracked, feat_valid, cam, None, cfg, idx)
+        with plain_gauss_newton():
+            plain = real(pts3d, tracked, feat_valid, cam, None, cfg, idx)
+        if bool(kernel[1]) != bool(plain[1]):
+            raise AssertionError(f"serving RANSAC: success {bool(kernel[1])}"
+                                 f" on the kernel, {bool(plain[1])} plain")
+        worst = max(worst, float((kernel[0] - plain[0]).abs().max()))
+        counts.append((int(kernel[2]), int(plain[2])))
+        args = (pts3d[idx], tracked[idx], torch.ones(idx.shape, device=dev),
+                gn.camera_vector(cam), cfg.gn_iters_hypothesis)
+        hk, hp = gn.solve_pose(*args), gn.solve_pose_plain(*args)
+        keep = sound(*(x.cpu().numpy() for x in (hp,) + args[:3]),
+                     cam=args[3].tolist())
+        n_sound += int(keep.sum())
+        if keep.any():
+            diff = (hk - hp).abs().amax((1, 2)).cpu().numpy()
+            worst_hyp = max(worst_hyp, float(diff[keep].max()))
+    if not (worst <= TOL_GN_MOTION and worst_hyp <= 1e-4 and n_sound):
+        raise AssertionError(f"serving RANSAC on the GN kernel: motion "
+                             f"{worst}, {n_sound} sound hypotheses "
+                             f"{worst_hyp} from plain")
+    log(f"GN kernel on the serving frames' {len(recorded)} RANSAC calls: "
+        f"success equal, motion max |diff| {worst:.3g} (tolerance "
+        f"{TOL_GN_MOTION}), inlier counts kernel/plain {counts}; "
+        f"{n_sound} sound hypotheses within {worst_hyp:.3g}")
+
+
+def run_lk_fallback(model, config, stereo, frames, dev) -> None:
+    """The LK fallback at serving size, forced on every frame by a
+    fallback fraction above 1: six GN launches and one LK tracking call a
+    frame, the motion within TOL_GN_MOTION of the same frames with the
+    plain solve."""
+    forced = config.replace(egomotion=dataclasses.replace(
+        config.egomotion, lk_fallback_frac=1.01))
+    reset_counts()
+    per_frame = {"gauss_newton": [], "lk_track": []}
+    stage_ms = {}
+    outs, _ = run_frames(model, forced, stereo, frames, dev,
+                         stage_ms=stage_ms, per_frame=per_frame)
+    if per_frame["lk_track"] != [1] * len(frames) or per_frame[
+            "gauss_newton"] != [6] * len(frames):
+        raise AssertionError(f"forced LK fallback: per frame "
+                             f"{json.dumps(per_frame)}, expected 1 LK call "
+                             f"and 6 gauss_newton launches")
+    with plain_gauss_newton():
+        plain, _ = run_frames(model, forced, stereo, frames, dev)
+    worst = 0.0
+    for k, (a, b) in enumerate(zip(outs, plain)):
+        if bool(a.ego_success) != bool(b.ego_success):
+            raise AssertionError(f"forced LK fallback: frame {k} ego "
+                                 f"success differs from the plain solve")
+        worst = max(worst, float((a.motion - b.motion).abs().max()))
+    if not worst <= TOL_GN_MOTION:
+        raise AssertionError(f"forced LK fallback: motion {worst} from the "
+                             f"plain solve")
+    log(f"forced LK fallback over {len(frames)} frames: 6 gauss_newton "
+        f"launches and 1 LK call a frame, ego success "
+        f"{[bool(o.ego_success) for o in outs]}, motion max |diff| from the "
+        f"plain solve {worst:.3g} (tolerance {TOL_GN_MOTION}); ego-motion "
+        f"{stage_ms['egomotion'] / len(frames):.3f} ms/frame")
+
+
+def profile_ego_motion(model, config, stereo, frames, dev):
+    """Ego-motion alone on the serving frames' inputs (recorded from a run
+    over the frames from a fresh state, then replayed one frame at a
+    time): per frame, host ms (synchronized), kernel launches and device
+    ms (profiler). Frame 0 has no previous frame and takes the LK
+    fallback."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from moving_object_detector_tpu_torch import pipeline
+
+    calls = []
+    real = pipeline.estimate_motion
+    pipeline.estimate_motion = lambda *a, **k: (calls.append((a, k))
+                                                or real(*a, **k))
+    try:
+        run_frames(model, config, stereo, frames, dev)
+    finally:
+        pipeline.estimate_motion = real
+    ms, launches, busy = [], [], []
+    for a, k in calls:
+        sync(dev)
+        t0 = time.perf_counter()
+        real(*a, **k)
+        sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            real(*a, **k)
+            sync(dev)
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        launches.append(len(kernels))
+        busy.append(sum(e.device_time for e in kernels) / 1e3)
+    return ms, launches, busy
 
 
 def run_v1_runner_path(model, config, stereo, frames, outs, loop_ms, dev,

@@ -2,6 +2,8 @@
 corners with NMS and bucketed top-K selection, correspondences from the
 dense flow (or pyramidal LK), RANSAC over batched 3-point Gauss-Newton
 hypotheses scored by MSAC, and a two-pass refinement of the best few.
+Each batch of Gauss-Newton solves is one call of
+``ops/gauss_newton_cuda.solve_pose``: one kernel launch on the card.
 
 Returns the camera motion M with p_now = M @ p_prev. All math is f32.
 Hypotheses are drawn with ``torch.multinomial`` from an explicit
@@ -15,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import EgoMotionConfig
-from .ops import geometry
+from .ops import gauss_newton_cuda, geometry
 from .types import CameraModel, DisparityImage
 
 
@@ -165,91 +167,21 @@ def lk_track(prev_img, now_img, pts, cfg: EgoMotionConfig):
     return tracked, ok
 
 
-def _transform(tf, pts):
-    """(..., 4, 4) transforms applied to (..., N, 3) points."""
-    return pts @ tf[..., :3, :3].transpose(-1, -2) + tf[..., None, :3, 3]
-
-
 def _reprojection_residuals(tf, pts3d, obs_uv, cam: CameraModel):
     """(..., N, 2) residuals pi(M X) - x, the moved points and the
     positive-depth mask."""
-    p = _transform(tf, pts3d)
-    z = p[..., 2]
-    ok = z > 0.1
-    safe_z = torch.where(ok, z, torch.ones_like(z))
-    u = cam.fx * p[..., 0] / safe_z + cam.cx
-    v = cam.fy * p[..., 1] / safe_z + cam.cy
-    return torch.stack([u, v], dim=-1) - obs_uv, p, ok
+    return gauss_newton_cuda.reprojection_residuals(
+        tf, pts3d, obs_uv, cam.fx, cam.fy, cam.cx, cam.cy)
 
 
-def _chol_solve6(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve a x = b for damped-SPD (..., 6, 6) systems, unrolled
-    Cholesky (the JAX package's form, batched over leading dims)."""
-    n = 6
-    l = [[None] * n for _ in range(n)]
-    for i in range(n):
-        s = a[..., i, i]
-        for k in range(i):
-            s = s - l[i][k] * l[i][k]
-        l[i][i] = torch.sqrt(torch.clamp(s, min=1e-20))
-        for j in range(i + 1, n):
-            s = a[..., j, i]
-            for k in range(i):
-                s = s - l[j][k] * l[i][k]
-            l[j][i] = s / l[i][i]
-    y = [None] * n
-    for i in range(n):
-        s = b[..., i]
-        for k in range(i):
-            s = s - l[i][k] * y[k]
-        y[i] = s / l[i][i]
-    x = [None] * n
-    for i in reversed(range(n)):
-        s = y[i]
-        for k in range(i + 1, n):
-            s = s - l[k][i] * x[k]
-        x[i] = s / l[i][i]
-    return torch.stack(x, dim=-1)
+_chol_solve6 = gauss_newton_cuda.chol_solve6
 
 
-def _gn_step(tf, pts3d, obs_uv, weights, cam: CameraModel, damping=1e-4):
-    """One damped Gauss-Newton update on the left-increment twist, batched
-    over leading dims of ``tf`` (..., 4, 4) / ``weights`` (..., N)."""
-    res, p, ok = _reprojection_residuals(tf, pts3d, obs_uv, cam)
-    w = weights * ok
-    z = torch.where(ok, p[..., 2], torch.ones_like(p[..., 2]))
-    x, y = p[..., 0], p[..., 1]
-    inv_z = 1.0 / z
-    zeros = torch.zeros_like(z)
-    ones = torch.ones_like(z)
-    du_dp = torch.stack([cam.fx * inv_z, zeros,
-                         -cam.fx * x * inv_z * inv_z], -1)
-    dv_dp = torch.stack([zeros, cam.fy * inv_z,
-                         -cam.fy * y * inv_z * inv_z], -1)
-    dp_dxi = torch.stack([
-        torch.stack([zeros, p[..., 2], -p[..., 1], ones, zeros, zeros], -1),
-        torch.stack([-p[..., 2], zeros, p[..., 0], zeros, ones, zeros], -1),
-        torch.stack([p[..., 1], -p[..., 0], zeros, zeros, zeros, ones], -1),
-    ], dim=-2)  # (..., N, 3, 6)
-    j_u = torch.einsum("...ni,...nij->...nj", du_dp, dp_dxi)
-    j_v = torch.einsum("...ni,...nij->...nj", dv_dp, dp_dxi)
-    jac = torch.stack([j_u, j_v], dim=-2)  # (..., N, 2, 6)
-    jw = jac * w[..., None, None]
-    jtj = torch.einsum("...nri,...nrj->...ij", jw, jac)
-    jtr = torch.einsum("...nri,...nr->...i", jw, res)
-    jtj = jtj + damping * torch.eye(6, dtype=torch.float32,
-                                    device=tf.device)
-    xi = -_chol_solve6(jtj, jtr)
-    return geometry.se3_exp(xi) @ tf
-
-
-def _solve_pose(pts3d, obs_uv, weights, cam, iters: int):
-    """Gauss-Newton from the identity; batch = leading dims of weights."""
-    tf = torch.eye(4, dtype=torch.float32, device=weights.device).expand(
-        weights.shape[:-1] + (4, 4)).contiguous()
-    for _ in range(iters):
-        tf = _gn_step(tf, pts3d, obs_uv, weights, cam)
-    return tf
+def _solve_pose(pts3d, obs_uv, weights, cam: CameraModel, iters: int):
+    """Gauss-Newton from the identity (``gauss_newton_cuda.solve_pose``:
+    one kernel launch on the card); batch = the rows of ``weights``."""
+    return gauss_newton_cuda.solve_pose(
+        pts3d, obs_uv, weights, gauss_newton_cuda.camera_vector(cam), iters)
 
 
 def _msac_score(err, valid, cfg: EgoMotionConfig):
@@ -280,8 +212,9 @@ def _ransac_gn_solve(pts3d, tracked, feat_valid, cam, generator,
     sample_idx = sample_idx.to(pts3d.device).long()
     ones = torch.ones(sample_idx.shape, dtype=torch.float32,
                       device=pts3d.device)
-    tfs = _solve_pose(pts3d[sample_idx], tracked[sample_idx], ones, cam,
-                      cfg.gn_iters_hypothesis)
+    cam_vec = gauss_newton_cuda.camera_vector(cam)
+    tfs = gauss_newton_cuda.solve_pose(pts3d[sample_idx], tracked[sample_idx],
+                                       ones, cam_vec, cfg.gn_iters_hypothesis)
     res, _, ok = _reprojection_residuals(tfs, pts3d, tracked, cam)
     err = torch.linalg.vector_norm(res, dim=-1)
     inliers = feat_valid & ok & (err < cfg.inlier_threshold_px)
@@ -290,12 +223,14 @@ def _ransac_gn_solve(pts3d, tracked, feat_valid, cam, generator,
     k_cand = max(1, min(cfg.refine_candidates, cfg.ransac_hypotheses))
     top_idx = torch.sort(scores, stable=True).indices[:k_cand]
 
-    tf = _solve_pose(pts3d, tracked, inliers[top_idx].float(), cam,
-                     cfg.gn_iters_refine)
+    tf = gauss_newton_cuda.solve_pose(pts3d, tracked,
+                                      inliers[top_idx].float(), cam_vec,
+                                      cfg.gn_iters_refine)
     res, _, ok = _reprojection_residuals(tf, pts3d, tracked, cam)
     err = torch.linalg.vector_norm(res, dim=-1)
     tight = feat_valid & ok & (err < 0.5 * cfg.inlier_threshold_px)
-    tf = _solve_pose(pts3d, tracked, tight.float(), cam, cfg.gn_iters_refine)
+    tf = gauss_newton_cuda.solve_pose(pts3d, tracked, tight.float(), cam_vec,
+                                      cfg.gn_iters_refine)
     res, _, ok = _reprojection_residuals(tf, pts3d, tracked, cam)
     err = torch.linalg.vector_norm(res, dim=-1)
     fin = feat_valid & ok & (err < cfg.inlier_threshold_px)

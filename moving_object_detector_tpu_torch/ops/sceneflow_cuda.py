@@ -163,8 +163,11 @@ def scene_flow_fused_cuda(d_now, d_prev, flow, params, v_radius: int = 16,
         raise ValueError(f"params must be ({NPAR},), see pack_params")
     if v_radius < 0 or h_radius < 0:
         raise ValueError("the window radii must not be negative")
-    d_now, d_prev, flow, params = (x.contiguous() for x in
-                                   (d_now, d_prev, flow, params))
+    # The kernel reads the planes 16 bytes at a time.
+    d_now, d_prev, flow = (x if x.is_contiguous() and x.data_ptr() % 16 == 0
+                           else x.clone(memory_format=torch.contiguous_format)
+                           for x in (d_now, d_prev, flow))
+    params = params.contiguous()
     rg, rt = geometry.window_spans(v_radius, h_radius)
     points = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
     velocity = torch.empty((h, w, 3), dtype=torch.float32, device=dev)

@@ -20,6 +20,7 @@ MODULES = ("config", "types", "tunables", "_build", "ops.geometry",
            "ops.flow_ops", "ops.flow_corr_cuda", "ops.clustering",
            "ops.clustering_cuda", "ops.cluster_stats",
            "ops.cluster_stats_cuda", "ops.gather_cuda", "ops.sceneflow_cuda",
+           "ops.gauss_newton_cuda",
            "ops.image", "ops.assignment", "models.pwc_net",
            "utils.checkpoint", "utils.profiling", "egomotion", "sceneflow",
            "clusterer", "tracker", "pipeline", "io", "io.readers", "io.viz",
@@ -66,7 +67,9 @@ def _sources():
                 yield os.path.join(base, f)
     yield os.path.join(ROOT, "chip_smoke.py")
     # Inputs chip_smoke.py takes from the tests.
-    yield os.path.join(ROOT, "tests", "dp_cc_cases.py")
+    for name in ("dp_cc_cases.py", "sceneflow_cases.py",
+                 "gauss_newton_cases.py"):
+        yield os.path.join(ROOT, "tests", name)
 
 
 def test_no_source_names_jax():

@@ -19,6 +19,7 @@ from moving_object_detector_tpu_torch.ops import (
     flow_corr_cuda,
     flow_ops,
     gather_cuda,
+    gauss_newton_cuda,
     geometry,
     sceneflow_cuda,
     sgm,
@@ -45,6 +46,8 @@ from dp_cc_cases import (
     stats_case,
     wta_total,
 )
+from gauss_newton_cases import CAM, correspondences, problem, sound
+from sceneflow_cases import FUSED_CASES, fused_case
 
 pytestmark = pytest.mark.gpu
 
@@ -722,10 +725,7 @@ def test_fused_scene_flow_kernel_matches_plain(cuda, h, w):
     args = [torch.from_numpy(x).to(cuda) for x in (d_now, d_prev, flow)]
     out = sceneflow_cuda.scene_flow_fused_cuda(*args, params)
     ref = sceneflow_cuda.scene_flow_fused(*args, params)
-    for a, b, scale in zip(out, ref, (1.0, 1.0, float(max(h, w)))):
-        assert torch.equal(torch.isnan(a), torch.isnan(b))
-        a, b = torch.nan_to_num(a), torch.nan_to_num(b)
-        assert bool(((a - b).abs() <= 1e-5 * (b.abs() + scale)).all())
+    _fused_close(out, ref, float(max(h, w)))
     assert bool(torch.isfinite(out[1]).any())
 
 
@@ -755,3 +755,104 @@ def test_wrappers_count_launches(cuda):
     after = {**gather_cuda.LAUNCHES, **clustering_cuda.LAUNCHES,
              **cluster_stats_cuda.LAUNCHES, **sceneflow_cuda.LAUNCHES}
     assert after == {k: v + 1 for k, v in counts.items()}
+
+
+def _fused_close(out, ref, scale):
+    """NaN masks exact, values within 1e-5 relative (1e-5 of ``scale``
+    for the static flow, a difference of pixel coordinates)."""
+    for a, b, sc in zip(out, ref, (1.0, 1.0, scale)):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        a, b = torch.nan_to_num(a), torch.nan_to_num(b)
+        assert bool(((a - b).abs() <= 1e-5 * (b.abs() + sc)).all())
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_fused_scene_flow_kernel_edge_cases_match_plain(cuda, case):
+    """Every residue of W mod 4, odd pixel counts, 1 x 1, 1 x 5, 3 x 7
+    (the scalar tail alone), matches on the window's edges, NaN and +-inf
+    flow; also from an input that is not 16-byte aligned."""
+    d_now, d_prev, flow, par, vr, hr = fused_case(case)
+    args = [torch.from_numpy(x).to(cuda) for x in (d_now, d_prev, flow)]
+    params = torch.from_numpy(par).to(cuda)
+    ref = sceneflow_cuda.scene_flow_fused(*args, params, vr, hr)
+    out = sceneflow_cuda.scene_flow_fused_cuda(*args, params, vr, hr)
+    _fused_close(out, ref, float(max(d_now.shape)))
+    shifted = torch.empty(d_now.size + 1, device=cuda)[1:].view(d_now.shape)
+    shifted.copy_(args[0])
+    out = sceneflow_cuda.scene_flow_fused_cuda(shifted, *args[1:], params,
+                                               vr, hr)
+    _fused_close(out, ref, float(max(d_now.shape)))
+
+
+def _gn_args(cuda, shape):
+    pts, uv, weights, iters = problem(shape)
+    args = [torch.from_numpy(x).to(cuda) for x in (pts, uv, weights)]
+    return args + [torch.tensor(CAM, device=cuda), iters], (pts, uv, weights)
+
+
+@pytest.mark.parametrize("threads", gauss_newton_cuda.THREADS)
+def test_gauss_newton_kernel_matches_plain_at_the_refine_shape(cuda,
+                                                               threads):
+    """4 candidates over 512 shared points, 8 iterations: within 1e-5
+    (the sums over the points run in another order)."""
+    args, _ = _gn_args(cuda, "refine")
+    before = gauss_newton_cuda.LAUNCHES["gauss_newton"]
+    out = gauss_newton_cuda.solve_pose(*args, threads=threads)
+    torch.cuda.synchronize()
+    assert gauss_newton_cuda.LAUNCHES["gauss_newton"] == before + 1
+    ref = gauss_newton_cuda.solve_pose_plain(*args)
+    assert float((out - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", ["hypothesis", "odd"])
+def test_gauss_newton_kernel_matches_plain_per_problem_and_odd(cuda, shape):
+    """64 hypotheses of 3 points each, 5 iterations: within 1e-4 on the
+    sound triples (gauss_newton_cases.sound: an ill-conditioned or
+    unconverged triple moves far on an ulp); 5 problems over 37 shared
+    points within 1e-5."""
+    args, (pts, uv, weights) = _gn_args(cuda, shape)
+    out = gauss_newton_cuda.solve_pose(*args)
+    ref = gauss_newton_cuda.solve_pose_plain(*args)
+    err = (out - ref).abs().amax((1, 2)).cpu().numpy()
+    if shape == "hypothesis":
+        keep = sound(ref.cpu().numpy(), pts, uv, weights)
+        assert keep.sum() >= 16
+        assert err[keep].max() <= 1e-4
+    else:
+        assert err.max() <= 1e-5
+
+
+def test_gauss_newton_kernel_does_zero_iterations_and_zero_weights(cuda):
+    args, _ = _gn_args(cuda, "odd")
+    eye = torch.eye(4, device=cuda).expand(5, 4, 4)
+    assert torch.equal(gauss_newton_cuda.solve_pose(*args[:4], 0), eye)
+    args[2] = torch.zeros_like(args[2])
+    assert torch.equal(gauss_newton_cuda.solve_pose(*args), eye)
+
+
+def test_ransac_on_the_kernel_equals_the_plain_run(cuda, monkeypatch):
+    """``_ransac_gn_solve`` with injected hypothesis indices: the same
+    success and inlier count, the motion within 1e-4."""
+    from moving_object_detector_tpu_torch import egomotion
+    from moving_object_detector_tpu_torch.config import EgoMotionConfig
+    from moving_object_detector_tpu_torch.types import CameraModel
+
+    pts, uv = (torch.from_numpy(x).to(cuda) for x in correspondences(512))
+    valid = torch.ones(512, dtype=torch.bool, device=cuda)
+    valid[-20:] = False
+    cam = CameraModel.create(*CAM, device=cuda)
+    cfg = EgoMotionConfig()
+    rng = np.random.default_rng(3)
+    idx = torch.from_numpy(np.stack([rng.choice(492, 3, replace=False)
+                                     for _ in range(64)])).to(cuda)
+    before = gauss_newton_cuda.LAUNCHES["gauss_newton"]
+    kernel = egomotion._ransac_gn_solve(pts, uv, valid, cam, None, cfg, idx)
+    torch.cuda.synchronize()
+    assert gauss_newton_cuda.LAUNCHES["gauss_newton"] == before + 3
+    monkeypatch.setattr(gauss_newton_cuda, "solve_pose",
+                        lambda *a, **k: gauss_newton_cuda.solve_pose_plain(
+                            *a, **k))
+    plain = egomotion._ransac_gn_solve(pts, uv, valid, cam, None, cfg, idx)
+    assert bool(kernel[1]) == bool(plain[1]) and bool(kernel[1])
+    assert int(kernel[2]) == int(plain[2])
+    assert float((kernel[0] - plain[0]).abs().max()) <= 1e-4

@@ -34,6 +34,7 @@ from moving_object_detector_tpu_torch.types import (
     CameraModel as TCam,
     DisparityImage as TDisp,
 )
+from sceneflow_cases import FUSED_CASES, fused_case
 
 torch.set_num_threads(2)
 
@@ -174,3 +175,24 @@ def test_fused_equals_the_windowed_composite_in_the_port():
                           match_h_radius=64))
         out[backend] = (cloud.points, cloud.velocity, static)
     _assert_parity(out["fused"], out["pallas"])
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_fused_edge_cases_plain_matches_pallas_interpret(case):
+    """The CUDA kernel's edge shapes (tests/sceneflow_cases.py): widths
+    with every residue mod 4, odd pixel counts, 1 x 1, 1 x 5, 3 x 7,
+    matches on both sides of the covered window's edges, NaN and +-inf
+    flow; the same parameter vector for both packages."""
+    d_now, d_prev, flow, par, vr, hr = fused_case(case)
+    ref = scene_flow_fused_pallas(jnp.asarray(d_now), jnp.asarray(d_prev),
+                                  jnp.asarray(flow), jnp.asarray(par),
+                                  v_radius=vr, h_radius=hr, interpret=True)
+    out = sceneflow_cuda.scene_flow_fused_cuda(
+        torch.from_numpy(d_now), torch.from_numpy(d_prev),
+        torch.from_numpy(flow), torch.from_numpy(par), v_radius=vr,
+        h_radius=hr)
+    _assert_parity(out, ref)
+    vel = out[1].numpy()
+    assert np.isnan(vel).any()
+    if d_now.size > 21:
+        assert np.isfinite(vel).any()
