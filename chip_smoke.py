@@ -88,7 +88,35 @@
    ``--save-state`` and 6 more with ``--resume-state``, which must equal
    the unbroken 12-frame run. Runs 6 frames with ``association="gnn"``
    and compares the tracks with the greedy run's.
-9. Prints the card's name and power limit, a ``{"kernels": [...]}`` line
+9. Quality: the held-out-texture sequence of
+   ``tests/test_real_sequence.py`` (two objects, a translating and yawing
+   camera, 7 frames) through ``eval.evaluate_planar_sequence`` with the
+   default weights (pwc_v7, which must be scale-2 gated) at 384 x 896, fx
+   600, flow and SGM at scale 2 (the serving setting) and at 192 x 448,
+   fx 300, scale 1. Each run must pass every gate of that test (D1 <
+   0.04, density > 0.85, rotation < 0.35 deg, translation < 0.13 m, no
+   ego failure, at most one phantom and none persistent, the lateral
+   object hit in all frames but one, the approaching one in 2 of the
+   last 3, median velocity error < 0.85 m/s, median centre error < 0.25
+   m, flow EPE < 2.6 / 1.8 and Fl < 0.19 / 0.13), and every default-path
+   kernel must launch on every frame (CC and stats from the second frame
+   on). Prints one JSON line per run, each metric beside the JAX
+   package's recorded quality value, and the serving run's oracle budget:
+   the median velocity error with the flow, the disparity, both or
+   neither replaced by the renderer's truth.
+10. Dashboard: ``PipelineRunner`` with ``io.dashboard.LiveDashboard`` over
+   ``run.py``'s interactive scene at 376 x 1242 (8 frames, not paced):
+   the page, ``/status.json`` and every product PNG served; a retune
+   POSTed to ``/tunables`` during frame 3's harvest is applied from frame
+   5 and shows in ``/tunables.json``; a ``/sim`` command moves the object
+   in the rendered frames; the dashboard's update runs with synchronizing
+   CUDA calls made errors. Each harvest, profiled alone, must launch no
+   kernel with or without the dashboard (it adds copies only); prints
+   the launches a frame of whole runs with and without it and the
+   runner's ``harvest`` and ``dashboard`` stage ms in turns. Then
+   ``run.main`` with ``--source interactive --serve-port 0`` in process:
+   its JSON lines, and its dashboard closed on return.
+11. Prints the card's name and power limit, a ``{"kernels": [...]}`` line
    and, last, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, before printing any result, without CUDA or without the
@@ -97,6 +125,7 @@ package beside it. Uses one card.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import io
@@ -1481,7 +1510,8 @@ def main() -> int:
 
 
 def run_checks_and_paths(dev, report) -> None:
-    """Phases 2 to 6 of the module docstring; raises on the first failure."""
+    """Phases 2 to 10 of the module docstring; raises on the first
+    failure."""
     count_lk_calls()
     from moving_object_detector_tpu_torch import config as cfgmod
     from moving_object_detector_tpu_torch.types import StereoModel
@@ -1689,6 +1719,8 @@ def run_checks_and_paths(dev, report) -> None:
     run_v1_runner_path(model, config, stereo, frames, outs, med, dev, report)
     run_cli(frames)
     run_gnn(model, config, stereo, frames[:6], outs[:6], dev)
+    run_quality(model, dev)
+    run_dashboard(model, config, stereo, dev)
 
 
 def check_serving_gauss_newton(model, config, stereo, frames, dev) -> None:
@@ -1831,9 +1863,9 @@ def run_v1_runner_path(model, config, stereo, frames, outs, loop_ms, dev,
     class KeepOutputs(PipelineRunner):
         """A runner that also keeps each frame's FrameOutput."""
 
-        def _harvest(self, index, t, out):
+        def _harvest(self, index, t, out, *rest):
             self.outs.append(out)
-            return super()._harvest(index, t, out)
+            return super()._harvest(index, t, out, *rest)
 
     v1 = config.replace(sgm=dataclasses.replace(config.sgm,
                                                 backend="pallas_v1"))
@@ -1908,12 +1940,14 @@ def run_v1_runner_path(model, config, stereo, frames, outs, loop_ms, dev,
         {k: round(v / n, 3) for k, v in stage_ms.items()}))
 
 
-def run_main(argv) -> list:
-    """``run.main(argv)`` in process: its parsed JSON lines."""
+def run_main(argv, err=None) -> list:
+    """``run.main(argv)`` in process: its parsed JSON lines; ``err``, a
+    StringIO, receives its standard error."""
     from moving_object_detector_tpu_torch import run
 
     out = io.StringIO()
-    with contextlib.redirect_stdout(out):
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(err or sys.stderr):
         rc = run.main(argv)
     if rc != 0:
         raise AssertionError(f"run.main({argv}) returned {rc}")
@@ -2012,6 +2046,438 @@ def run_gnn(model, config, stereo, frames, greedy_outs, dev) -> None:
         f"as greedy, centres max |diff| {worst:.3g}; published tracks "
         f"{[int(o.tracked.objects.valid.sum()) for o in outs]}; median "
         f"{statistics.median(ms[1:]):.2f} ms/frame")
+
+
+
+# The held-out-texture sequence of tests/test_real_sequence.py at its two
+# settings: (name, height, width, fx, flow and SGM input scale).
+QUALITY_RUNS = (("384x896 scale 2", 384, 896, 600.0, 2),
+                ("192x448 scale 1", 192, 448, 300.0, 1))
+# The JAX package's recorded quality values on this sequence, from the
+# comments of tests/test_real_sequence.py (quality, not speed), by scale.
+VEL_RECORDED = "0.593-0.606 (TPU), 0.706 (CPU), pwc_v6m3"
+JAX_RECORDED = {
+    2: {"d1": 0.016, "flow_epe": 1.78, "flow_fl": 0.130,
+        "ego_rot_err_deg": "<= 0.17", "ego_trans_err_m": "<= 0.063",
+        "vel_err_median": VEL_RECORDED},
+    1: {"d1": 0.013, "flow_epe": 1.05, "flow_fl": 0.070,
+        "ego_rot_err_deg": "<= 0.17", "ego_trans_err_m": "<= 0.063",
+        "vel_err_median": VEL_RECORDED},
+}
+# Kernels of the default path and their launches a frame.
+DEFAULT_PATH_KERNELS = {"sgm1_census": 1, "sgm_vertical": 1,
+                        "sgm_horizontal": 1, "sgm_wta": 1,
+                        "corr": len(CORR_LEVELS), "gather": 1}
+
+
+def heldout_sequence(h, w, fx):
+    """tests/test_real_sequence.py's sequence (two objects, a translating
+    and yawing camera, 7 frames), its frames rendered once."""
+    import functools
+
+    from moving_object_detector_tpu_torch.io.scenes import (
+        PlanarSceneSequence,
+        PlaneObject,
+    )
+
+    data = np.load(os.path.join(ROOT, "tests", "fixtures",
+                                "real_textures.npz"))
+    tex = {k: data[k].astype(np.float32) / 255.0
+           for k in data.files if k.startswith("heldout_")}
+    seq = PlanarSceneSequence(
+        h, w, fx=fx, bg_depth=12.0, bg_texture=tex["heldout_camera"],
+        objects=[
+            PlaneObject(center0=(-1.2, -0.75, 6.0), size=(2.0, 1.28),
+                        velocity=(2.0, 0.0, 0.0),
+                        texture=tex["heldout_blade"]),
+            PlaneObject(center0=(0.55, 0.5, 6.5), size=(1.7, 1.1),
+                        velocity=(0.2, 0.0, -4.0),
+                        texture=tex["heldout_freedom"]),
+        ],
+        cam_velocity=(0.5, 0.0, 0.3), yaw_rate=np.deg2rad(1.5),
+        fps=10.0, n_frames=7)
+    seq.frame = functools.lru_cache(maxsize=None)(seq.frame)
+    return seq
+
+
+def quality_gates(m, scale) -> list:
+    """(gate, value, limit, passed) for every gate of
+    tests/test_real_sequence.py: ``_common_gates`` and the flow gates of
+    the run at this scale."""
+    frames = m["detail_frames"]
+    persistent, prev_px = 0, []
+    for df in frames:  # a phantom within 60 px (L1) of the last frame's
+        cur_px = [ph["px"] for ph in df["phantoms"] if ph["px"]]
+        persistent += sum(any(abs(p[0] - q[0]) + abs(p[1] - q[1]) <= 60.0
+                              for q in prev_px) for p in cur_px)
+        prev_px = cur_px
+    lateral = [df["matched"][0] for df in frames]
+    approach = [df["matched"][1] for df in frames if len(df["matched"]) > 1]
+    epe_max, fl_max = (2.6, 0.19) if scale == 2 else (1.8, 0.13)
+    gates = [
+        ("d1", m["d1"], "< 0.04", m["d1"] < 0.04),
+        ("d1_density", m["d1_density"], "> 0.85", m["d1_density"] > 0.85),
+        ("ego_rot_err_deg", m["ego_rot_err_deg"], "< 0.35",
+         m["ego_rot_err_deg"] < 0.35),
+        ("ego_trans_err_m", m["ego_trans_err_m"], "< 0.13",
+         m["ego_trans_err_m"] < 0.13),
+        ("ego_failures", m["ego_failures"], "== 0", m["ego_failures"] == 0),
+        ("phantoms", m["phantoms"], "<= 1", m["phantoms"] <= 1),
+        ("persistent_phantoms", persistent, "== 0", persistent == 0),
+        ("lateral_hits", sum(lateral), f">= {len(lateral) - 1}",
+         sum(lateral) >= len(lateral) - 1),
+        ("approach_hits_of_last_3", sum(approach[-3:]), ">= 2",
+         sum(approach[-3:]) >= 2),
+        ("vel_err_median", m["vel_err_median"], "< 0.85",
+         m["vel_err_median"] < 0.85),
+        ("center_err_median", m["center_err_median"], "< 0.25",
+         m["center_err_median"] < 0.25),
+        ("flow_epe", m["flow_epe"], f"< {epe_max}", m["flow_epe"] < epe_max),
+        ("flow_fl", m["flow_fl"], f"< {fl_max}", m["flow_fl"] < fl_max),
+    ]
+    return gates
+
+
+@contextlib.contextmanager
+def counts_per_step(record: list):
+    """Append each ``detect_step`` call's kernel launches (and LK tracking
+    calls) to ``record``; callers that import ``detect_step`` at call time
+    (``eval``, the runner) get the counting one."""
+    from moving_object_detector_tpu_torch import pipeline
+
+    real = pipeline.detect_step
+
+    def counted(*args, **kwargs):
+        before = dict(read_counts(), lk_track=LK_CALLS[0])
+        result = real(*args, **kwargs)
+        after = dict(read_counts(), lk_track=LK_CALLS[0])
+        record.append({k: after[k] - before[k] for k in after})
+        return result
+
+    pipeline.detect_step = counted
+    try:
+        yield
+    finally:
+        pipeline.detect_step = real
+
+
+def check_default_path_per_frame(per_frame, what: str) -> None:
+    """Every default-path kernel on every frame: the census pair, the
+    three SGM v2 kernels, the correlation's levels and the gather at their
+    counts, the Gauss-Newton solve three times (six with the LK
+    fallback), CC and stats at least once on every frame that has a
+    previous one (the first frame has no velocities, so nothing to
+    cluster); no v1-only kernel and no fused construct."""
+    for k, c in enumerate(per_frame):
+        want = dict(DEFAULT_PATH_KERNELS,
+                    gauss_newton=6 if c["lk_track"] else 3)
+        bad = {n: c[n] for n, v in want.items() if c[n] != v}
+        bad.update({n: c[n] for n in V1_ONLY_KERNELS + ("sceneflow_fused",)
+                    if c[n]})
+        if k:
+            bad.update({n: c[n] for n in ("cc", "cluster_stats")
+                        if c[n] < 1})
+        if bad:
+            raise AssertionError(f"{what}: frame {k} launched {bad}")
+
+
+def run_quality(model, dev) -> None:
+    """The quality gates of tests/test_real_sequence.py on the card: the
+    held-out-texture sequence through ``eval.evaluate_planar_sequence`` at
+    the serving setting and at scale 1 (pwc_v7, the default weights, which
+    must be scale-2 gated), every default-path kernel launched on every
+    frame of the serving run; then the serving run's oracle budget."""
+    from moving_object_detector_tpu_torch.eval import (
+        evaluate_planar_sequence,
+    )
+    from moving_object_detector_tpu_torch.utils.checkpoint import (
+        default_flow_checkpoint,
+        flow_checkpoint_scale2_gated,
+    )
+
+    ckpt = default_flow_checkpoint()
+    if os.path.basename(ckpt) != "pwc_v7.fp16.npz":
+        raise AssertionError(f"the default weights are {ckpt}, not pwc_v7")
+    if not flow_checkpoint_scale2_gated(ckpt):
+        raise AssertionError(f"{ckpt} is not scale-2 gated")
+    failed = []
+    for name, h, w, fx, scale in QUALITY_RUNS:
+        seq = heldout_sequence(h, w, fx)
+        for k in range(seq.n_frames):
+            seq.frame(k)  # render outside the timed run
+        per_frame = []
+        reset_counts()
+        t0 = time.perf_counter()
+        with counts_per_step(per_frame):
+            m = evaluate_planar_sequence(
+                seq, model, flow_input_scale=scale, sgm_input_scale=scale,
+                details=True, device=dev)
+        wall = time.perf_counter() - t0
+        if len(per_frame) != seq.n_frames:
+            raise AssertionError(f"quality {name}: {len(per_frame)} steps")
+        check_default_path_per_frame(per_frame, f"quality {name}")
+        gates = quality_gates(m, scale)
+        metrics = {k: {"port": v, "jax_recorded": JAX_RECORDED[scale].get(k)}
+                   for k, v in m.items() if k != "detail_frames"}
+        print(json.dumps({
+            "quality": name, "device": torch.cuda.get_device_name(dev),
+            "weights": os.path.basename(ckpt), "metrics": metrics,
+            "gates": {g: {"value": v, "limit": lim, "pass": ok}
+                      for g, v, lim, ok in gates},
+            "launches_per_frame": {
+                n: [c[n] for c in per_frame]
+                for n in list(DEFAULT_PATH_KERNELS)
+                + ["cc", "cluster_stats", "gauss_newton", "lk_track"]},
+            "wall_s": round(wall, 3)}), flush=True)
+        failed += [f"{name}: {g} = {v} (limit {lim})"
+                   for g, v, lim, ok in gates if not ok]
+        if scale == 2:
+            budget = {"flow net + SGM": m["vel_err_median"]}
+            for fo, do, label in ((True, False, "flow oracle"),
+                                  (False, True, "disparity oracle"),
+                                  (True, True, "both oracles")):
+                budget[label] = evaluate_planar_sequence(
+                    seq, model, flow_input_scale=scale,
+                    sgm_input_scale=scale, flow_oracle=fo,
+                    disparity_oracle=do, device=dev)["vel_err_median"]
+            print(json.dumps({"oracle_budget": name,
+                              "vel_err_median": budget}), flush=True)
+    if failed:
+        raise AssertionError("quality gates failed: " + "; ".join(failed))
+    log("quality: every gate of tests/test_real_sequence.py passed at "
+        + " and ".join(r[0] for r in QUALITY_RUNS))
+
+
+def interactive_scene(h, w, fx, n_frames):
+    """``run.py --source interactive``'s scene (one object, 110 x 70 px at
+    6 m), not paced; ``columns`` receives each rendered left view's mean
+    object column."""
+    from moving_object_detector_tpu_torch.io.scenes import (
+        InteractiveSceneSequence,
+        PlaneObject,
+        _procedural_texture,
+    )
+
+    class Recorded(InteractiveSceneSequence):
+        def _cast(self, k, right):
+            out = super()._cast(k, right)
+            if not right:
+                self.columns.append(float(np.nonzero(out[2] == 0)[1].mean()))
+            return out
+
+    seq = Recorded(
+        h, w, fx=fx, baseline=BASELINE, bg_depth=12.0,
+        objects=[PlaneObject(
+            center0=(0.0, 0.0, 6.0), size=(110 * 6.0 / fx, 70 * 6.0 / fx),
+            velocity=(0.0, 0.0, 0.0),
+            texture=_procedural_texture(np.random.default_rng(5), 96, 128))],
+        n_frames=n_frames, realtime=False)
+    seq.columns = []
+    return seq
+
+
+def http(base, path, body=None):
+    """GET (or POST ``body``) ``base + path``: the response's bytes."""
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=body,
+                                 method="GET" if body is None else "POST")
+    return urllib.request.urlopen(req, timeout=10).read()
+
+
+def run_dashboard(model, config, stereo, dev) -> None:
+    """``LiveDashboard`` on ``PipelineRunner`` over an interactive scene at
+    the serving point: products served, a retune POSTed during frame 3's
+    harvest applied from frame 5, a /sim command moving the object; the
+    kernels each harvest launches (none: the dashboard reads the
+    harvest's host copy, and its update runs with synchronizing CUDA
+    calls made errors) and the launches a frame of whole runs, with and
+    without the dashboard; then ``run.main`` with ``--source interactive
+    --serve-port 0``."""
+    from urllib.error import URLError
+
+    from moving_object_detector_tpu_torch import pipeline
+    from moving_object_detector_tpu_torch.io.dashboard import LiveDashboard
+    from moving_object_detector_tpu_torch.io.runner import PipelineRunner
+    from torch.profiler import ProfilerActivity, profile
+
+    n = 8
+    speed = 0.5  # the retuned dynamic_speed, m/s
+
+    class Probe(LiveDashboard):
+        """POSTs a retune and a steering command from frame 3's harvest;
+        its update may make no synchronizing CUDA call."""
+
+        post_at = None
+
+        def update(self, index, t, out, left, config, stereo):
+            if index == self.post_at:
+                base = f"http://127.0.0.1:{self.port}"
+                http(base, "/tunables",
+                     json.dumps({"dynamic_speed": speed}).encode())
+                http(base, "/sim",
+                     json.dumps({"obj_velocity": [[2.0, 0.0, 0.0]]}).encode())
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                super().update(index, t, out, left, config, stereo)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+    # Functional run: products, retune, steering.
+    dash = Probe(0, host="127.0.0.1")
+    dash.post_at = 3
+    base = f"http://127.0.0.1:{dash.port}"
+    try:
+        seq = interactive_scene(H, W, FX, n)
+        dash.set_sim_handler(seq.command)
+        # A ring of one, blocking: the feeder renders at most two frames
+        # ahead, so the object moves in the frames after the command.
+        runner = PipelineRunner(config, stereo, model, dashboard=dash,
+                                ring_capacity=1, device=dev)
+        used = []
+        real = pipeline.detect_step
+
+        def spy(*args, tunables=None, **kwargs):
+            used.append(tunables)
+            return real(*args, tunables=tunables, **kwargs)
+
+        pipeline.detect_step = spy
+        try:
+            results = runner.run(seq)
+        finally:
+            pipeline.detect_step = real
+        page = http(base, "/")
+        status = json.loads(http(base, "/status.json"))
+        pngs = {p: http(base, f"/view/{p}.png") for p in dash.PRODUCTS}
+        view = json.loads(http(base, "/tunables.json"))
+    finally:
+        dash.close()
+    speeds = [float(t.dynamic_speed) for t in used]
+    want = [config.clusterer.dynamic_speed] * 5 + [speed] * (n - 5)
+    cols = seq.columns
+    if not (len(results) == n and status["frame"] == n - 1
+            and b"moving_object_detector_tpu_torch" in page
+            and all(b.startswith(b"\x89PNG") for b in pngs.values())):
+        raise AssertionError(f"dashboard: {len(results)} results, status "
+                             f"{status}, products "
+                             f"{ {p: b[:4] for p, b in pngs.items()} }")
+    if not np.allclose(speeds, want) or view["dynamic_speed"] != float(
+            np.float32(speed)):
+        raise AssertionError(f"dashboard retune: dynamic_speed per frame "
+                             f"{speeds}, /tunables.json {view}")
+    step = 2.0 / seq.fps * FX / 6.0  # px a frame at 2 m/s, 6 m away
+    if not (len(set(cols[:5])) == 1 and cols[-1] > cols[4] + 0.5 * step
+            and seq.state()["obj_pos"][0][0] > 0.3):
+        raise AssertionError(f"dashboard /sim: object columns {cols}, "
+                             f"state {seq.state()}")
+    log(f"dashboard over the interactive scene at {H}x{W}: status frame "
+        f"{status['frame']}, products "
+        f"{ {p: len(b) for p, b in pngs.items()} } bytes, dynamic_speed per "
+        f"frame {speeds}, object column per frame "
+        f"{[round(c, 1) for c in cols]}")
+
+    # Launches with and without the dashboard (every product wanted), on
+    # the same frames: profiled whole runs, then each harvest profiled
+    # alone (the device drained before it), then the stages' host ms
+    # unprofiled, in turns.
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def device_events(prof):
+        names = collections.Counter(
+            e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+        copies = collections.Counter(
+            {k: v for k, v in names.items()
+             if k.startswith(("Memcpy", "Memset"))})
+        return names - copies, copies
+
+    class HarvestProfiled(PipelineRunner):
+        """Profiles each harvest (results, exports, dashboard) alone."""
+
+        def _harvest(self, *args):
+            sync(dev)
+            with profile(activities=acts) as prof:
+                result = super()._harvest(*args)
+                sync(dev)
+            self.windows.append(device_events(prof))
+            return result
+
+    def through_runner(with_dash: bool, mode=None):
+        dash = Probe(0, host="127.0.0.1") if with_dash else None
+        try:
+            if dash is not None:
+                for p in dash.PRODUCTS:  # a browser asks for every product
+                    try:
+                        http(f"http://127.0.0.1:{dash.port}", f"/view/{p}.png")
+                    except URLError:
+                        pass  # 404: not rendered yet
+            cls = HarvestProfiled if mode == "harvest" else PipelineRunner
+            runner = cls(config, stereo, model, dashboard=dash, device=dev)
+            runner.windows = []
+            frames = list(interactive_scene(H, W, FX, n))
+            with (profile(activities=acts) if mode == "run"
+                  else contextlib.nullcontext()) as prof:
+                results = runner.run(frames)
+        finally:
+            if dash is not None:
+                dash.close()
+        seen = [(r.n_detections, r.n_tracks) for r in results]
+        if mode == "run":
+            kernels, copies = device_events(prof)
+            return (sum(kernels.values()) / n, sum(copies.values()) / n,
+                    seen)
+        if mode == "harvest":
+            return ([sum(k.values()) for k, _ in runner.windows],
+                    [sum(c.values()) for _, c in runner.windows], seen)
+        t = runner.timer.samples
+        return (statistics.median(t["harvest"][1:]) * 1e3,
+                statistics.median(t["dashboard"][1:]) * 1e3
+                if with_dash else None)
+
+    order = (False, True, True, False)
+    whole = [through_runner(d, "run") for d in order]
+    harvests = [through_runner(d, "harvest") for d in (False, True)]
+    turns = [through_runner(d) for d in order]
+    log("runner over the interactive scene, in turns without / with / with "
+        "/ without the dashboard (every product wanted), whole runs "
+        f"profiled: kernel launches a frame {[x[0] for x in whole]}, "
+        f"copies a frame {[x[1] for x in whole]}, (detections, tracks) a "
+        f"frame {[x[2] for x in whole]}")
+    log("each harvest profiled alone, without / with the dashboard: kernel "
+        f"launches {[x[0] for x in harvests]}, copies "
+        f"{[x[1] for x in harvests]}")
+    log("unprofiled, in turns: harvest median ms "
+        f"{[round(x[0], 3) for x in turns]}, dashboard stage median ms "
+        f"{[x[1] and round(x[1], 3) for x in turns]}")
+    if any(any(x[0]) for x in harvests) or (
+            dev.type == "cuda" and not all(x[0] for x in whole)):
+        raise AssertionError(
+            "a harvest launched kernels (or a profiled run saw none): "
+            f"{harvests}, {whole}")
+
+    # The CLI: an interactive scene with the dashboard, in process.
+    err = io.StringIO()
+    lines = run_main(["--source", "interactive", "--frames", "6",
+                      "--serve-port", "0", "--serve-host", "127.0.0.1",
+                      "--height", str(H), "--width", str(W), "--fx", str(FX),
+                      "--flow-input-scale", "2", "--sgm-input-scale", "2"],
+                     err=err)
+    frames = [r["frame"] for r in lines]
+    port = [line.rsplit(":", 1)[1].strip("/") for line in
+            err.getvalue().splitlines() if "live dashboard" in line]
+    if not (1 <= len(lines) <= 6 and frames == sorted(frames)
+            and frames[0] == 0 and len(port) == 1):
+        raise AssertionError(f"CLI --source interactive: frames {frames}, "
+                             f"stderr {err.getvalue()[-500:]}")
+    try:
+        http(f"http://127.0.0.1:{port[0]}", "/status.json")
+        raise AssertionError("CLI: the dashboard was left serving")
+    except URLError:
+        pass  # closed when run.main returned
+    log(f"CLI run.main --source interactive --serve-port 0: frames "
+        f"{frames} (a live ring drops stale frames), detections "
+        f"{[len(r['detections']) for r in lines]}, dashboard on port "
+        f"{port[0]} closed on return")
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
-"""Host-side I/O: sequence readers, the frame ring, visualization exports
-and the streaming runner (the JAX package's ``io/``). The interactive
-scenes and the live dashboard are not ported yet (ROADMAP.md Queue 1)."""
+"""Host-side I/O: sequence readers, the planar-scene renderer with its
+analytic ground truth (``scenes``), the frame ring, visualization exports,
+the live dashboard and the streaming runner (the JAX package's ``io/``)."""
 
 from .readers import (
     ImageSequence,

@@ -6,8 +6,9 @@ JAX package's ``io/runner.py``).
 * the consumer loop uploads each frame from a pinned host buffer with a
   non-blocking copy and runs ``detect_step`` on it;
 * the outputs of frame k - 1 are fetched after frame k has been enqueued,
-  then optionally exported (marker JSON, label / flow / depth / velocity
-  images);
+  as one batch of copies (``types.to_host``), then optionally exported
+  (marker JSON, label / flow / depth / velocity images) and shown on the
+  live dashboard (``io/dashboard.py``), both from that host copy;
 * the state left by a run can be snapshotted and a later run resumed
   from it.
 
@@ -31,7 +32,7 @@ import torch
 from .. import resolve_device
 from ..config import PipelineConfig
 from ..tunables import Tunables
-from ..types import StereoModel
+from ..types import StereoModel, to_host
 from ..utils.profiling import StageTimer
 from . import viz
 from .frame_ring import FrameRing
@@ -69,8 +70,9 @@ class _RunToken:
         self.error: Optional[BaseException] = None
 
 
-def _host(x: torch.Tensor) -> np.ndarray:
-    return x.detach().cpu().numpy()
+# What the runner calls on a dashboard (io/dashboard.LiveDashboard).
+_DASHBOARD_METHODS = ("wanted_fields", "update", "pop_pending_tunables",
+                      "set_tunables_view")
 
 
 class _Uploader:
@@ -119,10 +121,10 @@ class PipelineRunner:
         dashboard=None,
         device=None,
     ):
-        if dashboard is not None:
-            raise NotImplementedError(
-                "the live dashboard is not ported to the PyTorch package "
-                "yet (ROADMAP.md Queue 1, io/dashboard.py)")
+        if dashboard is not None and not all(
+                hasattr(dashboard, m) for m in _DASHBOARD_METHODS):
+            raise TypeError(f"dashboard {dashboard!r} lacks one of "
+                            f"{_DASHBOARD_METHODS} (io/dashboard.py)")
         self.device = resolve_device(device)
         self.config = config
         self.stereo = stereo
@@ -139,11 +141,20 @@ class PipelineRunner:
         self.timer = StageTimer()
         if export_dir:
             os.makedirs(export_dir, exist_ok=True)
-        # Runtime reconfigure channel: a watched JSON file whose keys are
-        # Tunables fields. Touched between frames, its values ride into
-        # the next ``detect_step`` as 0-d tensors.
+        # Runtime reconfigure channels: a watched JSON file and the
+        # dashboard's POST /tunables, whose keys are Tunables fields.
+        # Applied between frames, their values ride into the next
+        # ``detect_step`` as 0-d tensors; ``tunable_values`` mirrors them
+        # on the host, so publishing them reads no tensor.
         self.tunables = Tunables.from_config(config, device=self.device)
+        self.tunable_values = {
+            k: Tunables.stored(k, v)
+            for k, v in Tunables.config_values(config).items()}
         self.reconfigure_file = reconfigure_file
+        # Live HTTP viewer (io/dashboard.LiveDashboard), fed from the
+        # harvest's host copy with the rig's intrinsics on the host.
+        self.dashboard = dashboard
+        self._stereo_host = None if dashboard is None else to_host(stereo)
         self._reconfigure_mtime: float = -1.0
         self.final_state = None
         self.last_results: list[FrameResult] = []
@@ -177,9 +188,36 @@ class PipelineRunner:
                   flush=True)
         if not known:
             return False
-        self.tunables = self.tunables.replace_values(**known)
+        self._retune(known)
         print(f"# reconfigure: applied {known}", flush=True)
         return True
+
+    def _retune(self, values: dict) -> None:
+        """Apply known Tunables fields, on the device and in the mirror."""
+        self.tunables = self.tunables.replace_values(**values)
+        self.tunable_values.update(
+            {k: Tunables.stored(k, v) for k, v in values.items()})
+
+    def _apply_dashboard_tunables(self) -> bool:
+        """Between frames: drain knob values POSTed to the dashboard's
+        /tunables endpoint (the rqt-reconfigure loop: observe AND adjust
+        in one pane) and publish the current values for /tunables.json
+        from the host mirror. Same validation as the file channel: unknown
+        keys are reported and skipped, never fatal."""
+        if self.dashboard is None:
+            return False
+        values = self.dashboard.pop_pending_tunables()
+        known = {k: v for k, v in values.items()
+                 if hasattr(self.tunables, k)}
+        unknown = sorted(set(values) - set(known))
+        if unknown:
+            print(f"# dashboard reconfigure: ignoring unknown keys "
+                  f"{unknown}", flush=True)
+        if known:
+            self._retune(known)
+            print(f"# dashboard reconfigure: applied {known}", flush=True)
+        self.dashboard.set_tunables_view(self.tunable_values)
+        return bool(known)
 
     def _feeder(self, sequence: Iterable, token: "_RunToken"):
         try:
@@ -253,6 +291,7 @@ class PipelineRunner:
                     continue
                 left, right, t = frame
                 self._maybe_reload_tunables()
+                self._apply_dashboard_tunables()
                 with self.timer.stage("dispatch"):
                     left_d, right_d = self._upload(left, right)
                     state, out = detect_step(
@@ -262,7 +301,7 @@ class PipelineRunner:
                 # Harvest the previous frame after this one is enqueued.
                 if pending is not None:
                     results.append(self._harvest(*pending))
-                pending = (k, t, out)
+                pending = (k, t, out, left)
                 k += 1
             if pending is not None:
                 results.append(self._harvest(*pending))
@@ -302,35 +341,46 @@ class PipelineRunner:
 
         return restore_pipeline_state(path, device=self.device)
 
-    def _harvest(self, index: int, t: float, out) -> FrameResult:
+    def _harvest(self, index: int, t: float, out, left=None) -> FrameResult:
+        export = bool(self.export_dir) and index % self.export_every == 0
         with self.timer.stage("harvest"):
-            det = out.detections
-            trk = out.tracked.objects
-            det_valid = _host(det.valid)
-            trk_valid = _host(trk.valid)
+            # One batch of copies of the fields read this frame: the
+            # results' always, the exports' on an export frame, the
+            # wanted dashboard products'.
+            keep = {"detections", "tracked", "ego_success", "frame_valid",
+                    "cluster_overflow", "tracker_saturated"}
+            if export:
+                keep |= {"label_image", "flow", "static_flow", "scene_flow"}
+            if self.dashboard is not None:
+                keep |= self.dashboard.wanted_fields()
+            host = to_host(dataclasses.replace(out, **{
+                f.name: None for f in dataclasses.fields(out)
+                if f.name not in keep}))
+            det = host.detections
+            trk = host.tracked.objects
             result = FrameResult(
                 index=index,
                 time=t,
-                n_detections=int(det_valid.sum()),
-                n_tracks=int(trk_valid.sum()),
+                n_detections=int(det.valid.sum()),
+                n_tracks=int(trk.valid.sum()),
                 detections={
-                    "id": _host(det.id)[det_valid],
-                    "center": _host(det.center)[det_valid],
-                    "velocity": _host(det.velocity)[det_valid],
-                    "bounding_box": _host(det.bounding_box)[det_valid],
+                    "id": det.id[det.valid],
+                    "center": det.center[det.valid],
+                    "velocity": det.velocity[det.valid],
+                    "bounding_box": det.bounding_box[det.valid],
                 },
                 tracks={
-                    "id": _host(trk.id)[trk_valid],
-                    "center": _host(trk.center)[trk_valid],
-                    "velocity": _host(trk.velocity)[trk_valid],
-                    "bounding_box": _host(trk.bounding_box)[trk_valid],
+                    "id": trk.id[trk.valid],
+                    "center": trk.center[trk.valid],
+                    "velocity": trk.velocity[trk.valid],
+                    "bounding_box": trk.bounding_box[trk.valid],
                     # 4x4 KF covariance per published track.
-                    "covariance": _host(out.tracked.covariance)[trk_valid],
+                    "covariance": host.tracked.covariance[trk.valid],
                 },
-                ego_success=bool(out.ego_success),
-                frame_valid=bool(out.frame_valid),
-                cluster_overflow=int(out.cluster_overflow),
-                tracker_saturated=bool(out.tracker_saturated),
+                ego_success=bool(host.ego_success),
+                frame_valid=bool(host.frame_valid),
+                cluster_overflow=int(host.cluster_overflow),
+                tracker_saturated=bool(host.tracker_saturated),
                 harvest_wall=time.time(),
             )
             if result.cluster_overflow or result.tracker_saturated:
@@ -342,32 +392,37 @@ class PipelineRunner:
                     f"TrackerConfig.max_tracks",
                     file=sys.stderr,
                 )
-        if self.export_dir and index % self.export_every == 0:
+        if export:
             with self.timer.stage("export"):
-                self._export(index, out)
+                self._export(index, host)
+        if self.dashboard is not None:
+            with self.timer.stage("dashboard"):
+                self.dashboard.update(index, t, host, left, self.config,
+                                      self._stereo_host)
         return result
 
-    def _export(self, index: int, out) -> None:
+    def _export(self, index: int, host) -> None:
+        """Write the file products of one frame from its host copy."""
         prefix = os.path.join(self.export_dir, f"{index:06d}")
         viz.write_ppm(
             prefix + "_clusters.ppm",
-            viz.colorize_labels(_host(out.label_image),
+            viz.colorize_labels(host.label_image,
                                 self.config.clusterer.max_objects),
         )
-        viz.write_ppm(prefix + "_flow.ppm", viz.flow_to_rgb(_host(out.flow)))
+        viz.write_ppm(prefix + "_flow.ppm", viz.flow_to_rgb(host.flow))
         viz.write_ppm(prefix + "_static_flow.ppm",
-                      viz.flow_to_rgb(_host(out.static_flow)))
+                      viz.flow_to_rgb(host.static_flow))
         viz.write_ppm(prefix + "_depth.ppm",
-                      viz.depth_image(_host(out.scene_flow.points)))
+                      viz.depth_image(host.scene_flow.points))
         viz.write_ppm(
             prefix + "_velocity.ppm",
-            viz.velocity_image(_host(out.scene_flow.velocity),
+            viz.velocity_image(host.scene_flow.velocity,
                                self.config.scene_flow.max_color_velocity),
         )
-        markers = viz.objects_to_markers(out.detections,
+        markers = viz.objects_to_markers(host.detections,
                                          color=(1, 0, 0, 0.8))
         markers += viz.objects_to_markers(
-            out.tracked.objects, frame_id="odom", color=(0, 1, 0, 0.8)
+            host.tracked.objects, frame_id="odom", color=(0, 1, 0, 0.8)
         )
         viz.write_marker_json(prefix + "_markers.json", markers)
 

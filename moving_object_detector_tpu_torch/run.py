@@ -5,15 +5,20 @@
   directories at KITTI resolution (with --crop providing the image_crop
   stage);
 * ``--source npz``: playing back a recorded sequence;
-* ``--source live`` / ``socket``: growing directories / a TCP sensor.
+* ``--source live`` / ``socket``: growing directories / a TCP sensor;
+* ``--source interactive``: a rendered scene steered while it runs, from
+  the live dashboard's drive panel (``--serve-port``) or POST /sim.
 
 Outputs go to ``--export-dir`` as file products (marker JSON, cluster /
-flow / depth / velocity images); one JSON line per frame goes to stdout.
+flow / depth / velocity images); one JSON line per frame goes to stdout;
+``--serve-port`` serves the live dashboard while the run is in flight.
 Runs on the CUDA device and exits with an error when there is none.
 
-Example:
+Examples:
     python -m moving_object_detector_tpu_torch.run --source synthetic \
         --frames 8 --flow-input-scale 2 --sgm-input-scale 2
+    python -m moving_object_detector_tpu_torch.run --source interactive \
+        --frames 600 --serve-port 8080
 """
 
 from __future__ import annotations
@@ -83,7 +88,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run SGM stereo at 1/N resolution (nearest-"
                         "upsampled disparities x N)")
     p.add_argument("--serve-port", type=int, default=None,
-                   help="live dashboard port; not ported yet (ROADMAP.md)")
+                   help="serve a live dashboard (camera+detections, "
+                        "clusters, flow, depth + status) at "
+                        "http://HOST:PORT/ while the run is in flight "
+                        "(io/dashboard.py). 0 picks a free port (printed "
+                        "on stderr).")
     p.add_argument("--serve-host", default="0.0.0.0",
                    help="bind address for --serve-port")
     p.add_argument("--reconfigure-file", default=None,
@@ -131,14 +140,8 @@ def main(argv=None, device=None) -> int:
     """Run the CLI. ``device`` is for callers that want the CPU (the
     tests); the command line has no such switch and runs on ``cuda``."""
     args = build_parser().parse_args(argv)
-    if args.source == "interactive" or args.serve_port is not None:
-        what = ("--source interactive" if args.source == "interactive"
-                else "--serve-port")
-        print(f"{what} is not ported to the PyTorch package yet "
-              "(ROADMAP.md Queue 1: io/scenes.py, io/dashboard.py)",
-              file=sys.stderr)
-        return 2
 
+    import numpy as np
     import torch
 
     from . import resolve_device
@@ -196,6 +199,30 @@ def main(argv=None, device=None) -> int:
             baseline=args.baseline, fps=args.fps,
             n_frames=args.frames + done,
         )
+    elif args.source == "interactive":
+        # A drivable scene: steer the camera and the object from the
+        # dashboard's drive panel (--serve-port) or POST /sim; --frames
+        # bounds the run.
+        from .io.scenes import (
+            InteractiveSceneSequence,
+            PlaneObject,
+            _procedural_texture,
+        )
+
+        seq = InteractiveSceneSequence(
+            args.height, args.width, fx=args.fx, baseline=args.baseline,
+            bg_depth=12.0,
+            objects=[PlaneObject(
+                center0=(0.0, 0.0, 6.0),
+                size=(110 * 6.0 / args.fx, 70 * 6.0 / args.fx),
+                velocity=(0.0, 0.0, 0.0),
+                texture=_procedural_texture(np.random.default_rng(5), 96,
+                                            128),
+            )],
+            fps=args.fps, n_frames=(args.frames or 10 ** 9) + done,
+            realtime=True,
+        )
+        sim = seq
     elif args.source == "kitti":
         if not (args.left_dir and args.right_dir):
             print("--left-dir/--right-dir required for kitti", file=sys.stderr)
@@ -258,41 +285,58 @@ def main(argv=None, device=None) -> int:
     # Live sources get queue_size=1 drop-stale semantics: when the
     # pipeline can't keep up with the sensor, stale frames are dropped,
     # not queued.
-    live = args.source in ("live", "socket")
-    runner = PipelineRunner(
-        config, stereo, model,
-        export_dir=args.export_dir, export_every=args.export_every,
-        ring_capacity=1 if live else 4, drop_oldest=live,
-        reconfigure_file=args.reconfigure_file, device=device,
-    )
-    if done > 0:
-        # The file/synthetic sources restart from their first frame; fast
-        # -forward past the frames the snapshot already processed so the
-        # sequence (and its timestamps) continue where the snapshot left
-        # off. Without this, the restarted t=0 makes dt clamp to 1e-3 s
-        # and the first resumed frame's velocities explode ~100x.
-        def _skipped(base_seq, n):
-            for j, frame in enumerate(base_seq):
-                if j >= n:
-                    yield frame
+    live = args.source in ("live", "socket", "interactive")
+    dashboard = None
+    if args.serve_port is not None:
+        from .io.dashboard import LiveDashboard
 
-        print(f"# resume: skipping {done} already-processed frames",
-              file=sys.stderr)
-        seq = _skipped(seq, done)
-    from .utils.profiling import trace_context
-
-    with trace_context(args.trace_dir):
-        results = runner.run(
-            seq, max_frames=args.frames, initial_state=initial_state
+        dashboard = LiveDashboard(args.serve_port, host=args.serve_host)
+        print(f"# live dashboard: http://{args.serve_host}:"
+              f"{dashboard.port}/", file=sys.stderr)
+        if args.source == "interactive":
+            dashboard.set_sim_handler(sim.command)
+            print("# interactive sim: drive with WASD/QE + arrows on the "
+                  "dashboard page (POST /sim)", file=sys.stderr)
+    try:
+        runner = PipelineRunner(
+            config, stereo, model,
+            export_dir=args.export_dir, export_every=args.export_every,
+            ring_capacity=1 if live else 4, drop_oldest=live,
+            reconfigure_file=args.reconfigure_file, dashboard=dashboard,
+            device=device,
         )
-    if args.save_state:
-        runner.save_state(args.save_state)
+        if done > 0:
+            # The file/synthetic sources restart from their first frame;
+            # fast-forward past the frames the snapshot already processed
+            # so the sequence (and its timestamps) continue where the
+            # snapshot left off. Without this, the restarted t=0 makes dt
+            # clamp to 1e-3 s and the first resumed frame's velocities
+            # explode ~100x.
+            def _skipped(base_seq, n):
+                for j, frame in enumerate(base_seq):
+                    if j >= n:
+                        yield frame
 
-    for r in results:
-        print(json.dumps(_frame_record(r)))
-    if args.report:
-        print(runner.report(), file=sys.stderr)
-    return 0
+            print(f"# resume: skipping {done} already-processed frames",
+                  file=sys.stderr)
+            seq = _skipped(seq, done)
+        from .utils.profiling import trace_context
+
+        with trace_context(args.trace_dir):
+            results = runner.run(
+                seq, max_frames=args.frames, initial_state=initial_state
+            )
+        if args.save_state:
+            runner.save_state(args.save_state)
+
+        for r in results:
+            print(json.dumps(_frame_record(r)))
+        if args.report:
+            print(runner.report(), file=sys.stderr)
+        return 0
+    finally:
+        if dashboard is not None:
+            dashboard.close()
 
 
 if __name__ == "__main__":

@@ -28,10 +28,11 @@ class Tunables:
     correction_count_limit: torch.Tensor  # (int32)
     object_radius: torch.Tensor  # m
 
-    @classmethod
-    def from_config(cls, config: PipelineConfig, device=None) -> "Tunables":
+    @staticmethod
+    def config_values(config: PipelineConfig) -> dict:
+        """Each field's value in ``config``, as a host number."""
         sf, cl, tr = config.scene_flow, config.clusterer, config.tracker
-        vals = dict(
+        return dict(
             dynamic_flow_diff=sf.dynamic_flow_diff,
             dynamic_disparity_rate=sf.dynamic_disparity_rate,
             max_color_velocity=sf.max_color_velocity,
@@ -43,11 +44,23 @@ class Tunables:
             correction_count_limit=tr.correction_count_limit,
             object_radius=tr.object_radius,
         )
+
+    @staticmethod
+    def stored(name: str, value) -> float:
+        """``value`` as field ``name`` holds it (int32 or f32), read back
+        as a float, without touching a device: the host mirror a caller
+        keeps of the knobs it set."""
+        return float(torch.tensor(
+            value, dtype=torch.int32 if name in _INT_FIELDS
+            else torch.float32))
+
+    @classmethod
+    def from_config(cls, config: PipelineConfig, device=None) -> "Tunables":
         return cls(**{
             k: torch.tensor(
                 v, device=device,
                 dtype=torch.int32 if k in _INT_FIELDS else torch.float32)
-            for k, v in vals.items()})
+            for k, v in cls.config_values(config).items()})
 
     def replace_values(self, **kw) -> "Tunables":
         """A copy with the given scalars updated (a retune between

@@ -105,6 +105,26 @@ def default_flow_checkpoint() -> str | None:
     return None
 
 
+# Exact basenames of the bundled weight archives that passed the JAX
+# package's flow_input_scale=2 serving gates (the EPE floor at 384 x 896
+# and the end-to-end detection gates at both scales) on that exact file.
+# Exact names, not prefixes: an ungated export such as
+# "pwc_v7_candidate.fp16.npz" must not claim the gate.
+_SCALE2_GATED_BASENAMES = frozenset({
+    "pwc_v4e.fp16.npz", "pwc_v5.fp16.npz", "pwc_v6m3.fp16.npz",
+    "pwc_p1.fp16.npz", "pwc_v7.fp16.npz", "pwc_p3.fp16.npz",
+})
+
+
+def flow_checkpoint_scale2_gated(path: str | None) -> bool:
+    """True iff these weights passed the serving quality gates at
+    flow_input_scale=2: the precondition for serving the half-resolution
+    flow path. Keyed on the exact allowlist above."""
+    if not path:
+        return False
+    return os.path.basename(path) in _SCALE2_GATED_BASENAMES
+
+
 def resolve_flow_checkpoint(arg: str | None) -> str | None:
     """CLI convention: "auto" (or None) -> the bundled weights if present;
     "none" -> random init; anything else -> an explicit ``.npz`` path."""

@@ -22,9 +22,10 @@ MODULES = ("config", "types", "tunables", "_build", "ops.geometry",
            "ops.cluster_stats_cuda", "ops.gather_cuda", "ops.sceneflow_cuda",
            "ops.gauss_newton_cuda",
            "ops.image", "ops.assignment", "models.pwc_net",
-           "utils.checkpoint", "utils.profiling", "egomotion", "sceneflow",
-           "clusterer", "tracker", "pipeline", "io", "io.readers", "io.viz",
-           "io.frame_ring", "io.runner", "run")
+           "utils.checkpoint", "utils.profiling", "utils.frames",
+           "egomotion", "sceneflow", "clusterer", "tracker", "pipeline",
+           "eval", "io", "io.readers", "io.viz", "io.frame_ring",
+           "io.scenes", "io.dashboard", "io.runner", "run")
 
 
 def test_import_leaves_jax_out():

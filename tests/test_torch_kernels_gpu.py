@@ -856,3 +856,80 @@ def test_ransac_on_the_kernel_equals_the_plain_run(cuda, monkeypatch):
     assert bool(kernel[1]) == bool(plain[1]) and bool(kernel[1])
     assert int(kernel[2]) == int(plain[2])
     assert float((kernel[0] - plain[0]).abs().max()) <= 1e-4
+
+
+def test_harvest_with_the_dashboard_launches_no_kernel(cuda):
+    """The runner's harvest (results, and with a dashboard every wanted
+    product) copies from the card and launches nothing: each harvest
+    profiled alone, the device drained before it."""
+    import urllib.error
+    import urllib.request
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from moving_object_detector_tpu_torch import config as tcfg
+    from moving_object_detector_tpu_torch.io import scenes
+    from moving_object_detector_tpu_torch.io.dashboard import LiveDashboard
+    from moving_object_detector_tpu_torch.io.runner import PipelineRunner
+    from moving_object_detector_tpu_torch.models.pwc_net import PWCNet
+    from moving_object_detector_tpu_torch.types import StereoModel
+
+    h, w, fx = 64, 128, 100.0
+    config = tcfg.PipelineConfig(
+        height=h, width=w,
+        flownet=tcfg.FlowNetConfig(feature_channels=(8, 16, 32),
+                                   search_range=2, use_context_net=False,
+                                   dtype="float32"),
+        sgm=tcfg.SGMConfig(max_disparity=32, backend="xla"))
+    torch.manual_seed(0)
+    model = PWCNet(config.flownet).to(cuda).eval()
+    stereo = StereoModel.create(fx=fx, fy=fx, cx=w / 2, cy=h / 2,
+                                baseline=0.5, device=cuda)
+
+    class Profiled(PipelineRunner):
+        def _harvest(self, *args):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                result = super()._harvest(*args)
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+            self.kernels.append(sum(not n.startswith(("Memcpy", "Memset"))
+                                    for n in names))
+            self.copies.append(len(names) - self.kernels[-1])
+            return result
+
+    def frames():
+        return list(scenes.InteractiveSceneSequence(
+            h, w, fx=fx, bg_depth=12.0, realtime=False, n_frames=4,
+            objects=[scenes.PlaneObject(
+                center0=(0.0, 0.0, 6.0), size=(1.0, 0.7),
+                velocity=(0.5, 0.0, 0.0),
+                texture=scenes._procedural_texture(
+                    np.random.default_rng(5), 64, 96))]))
+
+    copies = []
+    for with_dash in (False, True):
+        dash = LiveDashboard(0, host="127.0.0.1") if with_dash else None
+        try:
+            for name in (dash.PRODUCTS if dash else ()):  # a browser asks
+                with pytest.raises(urllib.error.HTTPError):  # 404 for now
+                    urllib.request.urlopen(
+                        f"http://127.0.0.1:{dash.port}/view/{name}.png",
+                        timeout=5)
+            runner = Profiled(config, stereo, model, dashboard=dash,
+                              device=cuda)
+            runner.kernels, runner.copies = [], []
+            runner.run(frames())
+            if dash is not None:
+                page = urllib.request.urlopen(
+                    f"http://127.0.0.1:{dash.port}/view/flow.png",
+                    timeout=5).read()
+                assert page.startswith(b"\x89PNG")
+        finally:
+            if dash is not None:
+                dash.close()
+        assert runner.kernels == [0] * 4, runner.kernels
+        copies.append(runner.copies)
+    assert all(b > a for a, b in zip(*copies)), copies
