@@ -5,8 +5,9 @@
 1. Builds the CUDA kernels from ``moving_object_detector_tpu_torch/csrc``
    (one nvcc per source, in parallel) and prints the build seconds.
 2. Holds each of the thirteen kernels against its plain PyTorch version on
-   the card, at the serving shapes and at an odd shape: the SGM deltas and
-   disparity bitwise (v2; the WTA for every combination of ``subpixel``,
+   the card, at the serving shapes and at an odd shape: the census pair,
+   SGM deltas and disparity bitwise (v2, also at the spatial path's
+   252 x 1242 stripe; the WTA for every combination of ``subpixel``,
    ``lr_check`` and ``uniqueness_ratio``, also at a width below 128, at
    widths that are and are not a multiple of 4, on a constant pair and on
    random int8 volumes), the v1 census pair, cost volume, aggregated total
@@ -116,7 +117,36 @@
    runner's ``harvest`` and ``dashboard`` stage ms in turns. Then
    ``run.main`` with ``--source interactive --serve-port 0`` in process:
    its JSON lines, and its dashboard closed on return.
-11. Prints the card's name and power limit, a ``{"kernels": [...]}`` line
+11. Streams: ``parallel.streams.detect_step_streams_scan`` over 4 camera
+   streams at the serving point, each with its own 12 frames (the
+   background rolled, the patch cut and started elsewhere, from a seed).
+   Every stream's disparity, flow, label image, detections, motion and
+   pose must equal a single-stream ``detect_step`` run of its frames bit
+   for bit, and each frame's launches the sum of the single-stream
+   runs' (4 x each default-path kernel); ``detect_step_batched`` must
+   refuse CUDA tensors. Prints ms per 4-stream step and pairs/s.
+12. Spatial: two processes (``torch.multiprocessing``), both on the one
+   card, join a gloo world as a (data 1, model 2) mesh and run
+   ``parallel.spatial.detect_step_streams_spatial`` on 12 moving-patch
+   frames with bench.py's halos (SGM 32, flow 64); the halo and gather
+   buffers go through host memory (gloo has no CUDA transport). Both
+   ranks' outputs must be equal bit for bit; the gathered disparity bit
+   for bit the plain SGM of each rank's 252 x 1242 stripe, and the
+   gathered flow the net's on each 316 x 1242 stripe, both cropped and
+   stacked in this process; the disparity agree with the unsharded
+   full-resolution ``compute_disparity`` within
+   ``tests/test_spatial.py``'s thresholds, the flow with the unsharded
+   scale-2 flow (median |diff| < 0.25 px from frame 1: pwc_v7's own
+   striping error, ``TOL_SPATIAL_FLOW``), the patch be
+   detected, and the census, SGM v2 and correlation kernels launch on
+   each rank. A rank's failure fails the script.
+13. The same step over a world of one NCCL rank (this process; device
+   tensors through the all-gather) with no halo, bit for bit the
+   unsharded step fed the full-resolution SGM and the scale-2 flow.
+14. alg: the 13-channel ICF bank on a 376 x 1242 RGB frame, a kNN store
+   of capacity 4096 and 1,000 online-boosting updates on the card,
+   against the same calls on the CPU within stated tolerances.
+15. Prints the card's name and power limit, a ``{"kernels": [...]}`` line
    and, last, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, before printing any result, without CUDA or without the
@@ -163,6 +193,9 @@ TOL_FLOW_MEAN = 0.05  # px, kernel vs plain correlation through the bf16 net
 PATCH2_X, PATCH2_D = 990, 36  # the second patch of the two-window frames
 CROP_H, CROP_W = 192, 512  # ClustererConfig.cc_crop_h / cc_crop_w
 ODD_H, ODD_W = 125, 350
+SGM_HALO, FLOW_HALO = 32, 64  # bench.py's --spatial halos
+# A rank's full-resolution SGM stripe on the spatial path, two ranks.
+SPATIAL_SGM_STRIPE = (H // 2 + 2 * SGM_HALO, W)
 PLAIN_CC_ITERS = 1 << 14  # rounds enough for the plain fixpoint to converge
 OPS_PER_EDGE_TEST = 6  # 2 loads, subtract, abs, 2 compares (CC)
 OPS_PER_FUSED_PIXEL = 100  # about 60 f32 operations and 10 divisions
@@ -236,15 +269,24 @@ def bound_ms(nbytes: float, ops: float):
                                  "operations")
 
 
-def make_frames(n_frames=N_FRAMES, second_patch=False):
-    """(left, right) f32 pairs: strips of known disparity, a moving patch;
-    with ``second_patch`` another one near the right border."""
+def make_frames(n_frames=N_FRAMES, second_patch=False, seed=None):
+    """(left, right, x) f32 pairs: strips of known disparity, a moving patch
+    at column x; with ``second_patch`` another one near the right border.
+    With a ``seed`` (one camera stream of several), the background is
+    rolled, the patch cut from another place and started at another
+    column, all drawn from the seed."""
     tex = np.load(os.path.join(ROOT, "tests", "fixtures",
                                "real_textures.npz"))
     bg = np.concatenate([tex["china"][:H], tex["flower"][:H]], axis=1)
     bg = bg[:, :W].astype(np.float32) / 255.0
-    patch = tex["hopper"][100:100 + PATCH_H,
-                          100:100 + PATCH_W].astype(np.float32) / 255.0
+    src_y, src_x, start = 100, 100, 360
+    if seed is not None:
+        rng = np.random.default_rng(seed)
+        bg = np.roll(bg, int(rng.integers(0, W)), axis=1)
+        src_y, src_x = (int(v) for v in rng.integers(0, 300, 2))
+        start = int(rng.integers(W // 4, W // 3))
+    patch = tex["hopper"][src_y:src_y + PATCH_H,
+                          src_x:src_x + PATCH_W].astype(np.float32) / 255.0
     right_bg = np.empty_like(bg)
     for x0, x1, d in STRIPS:
         right_bg[:, x0:x1] = np.roll(bg, -d, axis=1)[:, x0:x1]
@@ -252,7 +294,7 @@ def make_frames(n_frames=N_FRAMES, second_patch=False):
     patch2 = tex["hopper"][240:240 + PATCH_H,
                            300:300 + PATCH_W].astype(np.float32) / 255.0
     for k in range(n_frames):
-        x = 360 + SHIFT * k
+        x = start + SHIFT * k
         left = bg.copy()
         right = right_bg.copy()
         pasted = [(patch, x, PATCH_D)]
@@ -289,16 +331,20 @@ def check_wta(sgm, sgm_cuda, vols, cl, cr, what: str) -> None:
 
 
 def check_sgm_kernels(dev, report):
-    from moving_object_detector_tpu_torch.ops import sgm, sgm_cuda
+    from moving_object_detector_tpu_torch.ops import sgm, sgm_cuda, sgm_v1_cuda
 
     rng = np.random.default_rng(0)
     serving = None
-    for h, w in ((H // 2, W // 2), (ODD_H, ODD_W)) + WTA_EDGE_SHAPES:
+    for h, w in ((H // 2, W // 2), (ODD_H, ODD_W),
+                 SPATIAL_SGM_STRIPE) + WTA_EDGE_SHAPES:
         left = torch.tensor(rng.uniform(0, 1, (h, w)), dtype=torch.float32,
                             device=dev)
         right = torch.roll(left, -9, 1) + 0.02 * torch.randn(
             h, w, device=dev)
         cl, cr = sgm.census_transform(left), sgm.census_transform(right)
+        kl, kr = sgm_v1_cuda.census_pair(left, right)
+        if not (torch.equal(kl, cl) and torch.equal(kr, cr)):
+            raise AssertionError(f"sgm1_census differs at {h}x{w}")
         vf, vb = sgm_cuda.vertical_deltas(cl, cr, 10, 120)
         hf, hb = sgm_cuda.horizontal_deltas(cl, cr, 10, 120)
         pvf, pvb = sgm.vertical_deltas(cl, cr, 10, 120)
@@ -309,7 +355,7 @@ def check_sgm_kernels(dev, report):
             if not torch.equal(a, b):
                 raise AssertionError(f"{name} deltas differ at {h}x{w}")
         check_wta(sgm, sgm_cuda, (hf, hb, vf, vb), cl, cr, f"{h}x{w}")
-        log(f"sgm kernels bitwise equal to plain at {h}x{w} "
+        log(f"census and sgm v2 kernels bitwise equal to plain at {h}x{w} "
             f"({len(WTA_FLAGS)} WTA flag combinations)")
         if serving is None:
             serving = (h, w, cl, cr, vf, vb, hf, hb)
@@ -1494,11 +1540,7 @@ def main() -> int:
     report = {}
     run_checks_and_paths(dev, report)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
-    log(smi)
+    log(card())
     for r in report.values():  # NaN is not JSON: not measured is null
         if r["device_ms"] != r["device_ms"]:
             r["device_ms"] = None
@@ -1509,29 +1551,15 @@ def main() -> int:
     return 0
 
 
-def run_checks_and_paths(dev, report) -> None:
-    """Phases 2 to 10 of the module docstring; raises on the first
-    failure."""
-    count_lk_calls()
+def serving_setup(dev):
+    """(flow net, config, stereo rig) of the serving point: 376 x 1242,
+    pwc_v7, flow and SGM at scale 2, the two-window crop, "auto"
+    backends."""
     from moving_object_detector_tpu_torch import config as cfgmod
     from moving_object_detector_tpu_torch.types import StereoModel
     from moving_object_detector_tpu_torch.utils.checkpoint import (
         load_flow_checkpoint,
     )
-
-    check_sgm_kernels(dev, report)
-    check_sgm_v1_kernels(dev, report)
-    check_corr_kernel(dev, report)
-    check_gather_kernel(dev, report)
-    cc_serving = check_cc_kernel(dev, report)
-    check_stats_kernel(dev, report, cc_serving)
-    check_fused_kernel(dev, report)
-    check_gauss_newton_kernel(dev, report)
-    for r in report.values():
-        log(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3g} "
-            f"ms {r['ms']:.4f} (on the device {r['device_ms']:.4f}) "
-            f"plain_ms {r['plain_ms']:.4f} "
-            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
 
     config = cfgmod.PipelineConfig(
         height=H, width=W, flow_input_scale=2, sgm_input_scale=2,
@@ -1547,6 +1575,30 @@ def run_checks_and_paths(dev, report) -> None:
     assert config.clusterer.cc_backend == "auto"
     stereo = StereoModel.create(fx=FX, fy=FX, cx=W / 2.0, cy=H / 2.0,
                                 baseline=BASELINE, device=dev)
+    return model, config, stereo
+
+
+def run_checks_and_paths(dev, report) -> None:
+    """Phases 2 to 14 of the module docstring; raises on the first
+    failure."""
+    count_lk_calls()
+
+    check_sgm_kernels(dev, report)
+    check_sgm_v1_kernels(dev, report)
+    check_corr_kernel(dev, report)
+    check_gather_kernel(dev, report)
+    cc_serving = check_cc_kernel(dev, report)
+    check_stats_kernel(dev, report, cc_serving)
+    check_fused_kernel(dev, report)
+    check_gauss_newton_kernel(dev, report)
+    for r in report.values():
+        log(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3g} "
+            f"ms {r['ms']:.4f} (on the device {r['device_ms']:.4f}) "
+            f"plain_ms {r['plain_ms']:.4f} "
+            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
+
+    model, config, stereo = serving_setup(dev)
+    fcfg = config.flownet
     frames = make_frames()
     run_frames(model, config, stereo, frames[:2], dev)  # warm-up
 
@@ -1721,6 +1773,10 @@ def run_checks_and_paths(dev, report) -> None:
     run_gnn(model, config, stereo, frames[:6], outs[:6], dev)
     run_quality(model, dev)
     run_dashboard(model, config, stereo, dev)
+    run_streams(model, config, stereo, dev)
+    run_spatial(model, config, stereo, dev)
+    run_spatial_nccl(model, config, stereo, dev)
+    run_alg(dev)
 
 
 def check_serving_gauss_newton(model, config, stereo, frames, dev) -> None:
@@ -2478,6 +2534,489 @@ def run_dashboard(model, config, stereo, dev) -> None:
         f"{frames} (a live ring drops stale frames), detections "
         f"{[len(r['detections']) for r in lines]}, dashboard on port "
         f"{port[0]} closed on return")
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def tree_equal(a, b) -> bool:
+    """Bit for bit through dataclasses, NaN where NaN."""
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b) or (
+            a.is_floating_point() and torch.equal(a.isnan(), b.isnan())
+            and torch.equal(a.nan_to_num(), b.nan_to_num()))
+    if dataclasses.is_dataclass(a):
+        return all(tree_equal(getattr(a, f.name), getattr(b, f.name))
+                   for f in dataclasses.fields(a))
+    return a == b
+
+
+# The step's products a stream must reproduce bit for bit.
+STEP_FIELDS = ("disparity", "flow", "label_image", "detections",
+               "odom_pose", "motion")
+STREAMS = 4  # camera streams of the streams phase
+SPATIAL_FRAMES = 12
+# Striped against unsharded flow, median |diff| in px. With pwc_v7 the
+# striping error is the reference's own (the coarsest level sees 64 net
+# pixels, the halo 32, and a stripe pads to the pyramid stride otherwise
+# than the image): tests/test_torch_spatial.py holds the port's equal to
+# the JAX package's, and the spatial phase holds the ranks' flow bit for
+# bit to the net run here on the same stripes. The 0.1 px of
+# tests/test_spatial.py is for its three-level net; the serving point
+# reads 0.17 to 0.19 px on an NVIDIA H100 80GB HBM3 at 700.00 W.
+TOL_SPATIAL_FLOW = 0.25
+
+
+def differing_fields(a, b) -> list:
+    return [f for f in STEP_FIELDS
+            if not tree_equal(getattr(a, f), getattr(b, f))]
+
+
+def run_streams(model, config, stereo, dev) -> None:
+    """``detect_step_streams_scan`` over STREAMS camera streams at the
+    serving point, each with its own frames: every stream bit for bit
+    equal to a single-stream run of its frames, each frame's launches
+    the sum of the single-stream runs' (N x each default-path kernel);
+    ms per N-stream step and pairs/s; ``detect_step_batched`` refused on
+    CUDA tensors."""
+    from moving_object_detector_tpu_torch.parallel import streams
+
+    if torch.backends.cudnn.benchmark:
+        raise AssertionError("cudnn.benchmark would autotune between runs")
+    frames = [make_frames(seed=100 + i) for i in range(STREAMS)]
+    singles, single_counts, single_ms = [], [], []
+    for i, f in enumerate(frames):
+        record = []
+        with counts_per_step(record):
+            outs, ms = run_frames(model, config, stereo, f, dev)
+        check_default_path_per_frame(record, f"stream {i} alone")
+        if not any(int(o.detections.valid.sum()) for o in outs[1:]):
+            raise AssertionError(f"stream {i} alone: the patch was never "
+                                 "detected")
+        singles.append(outs)
+        single_counts.append(record)
+        single_ms += ms[1:]
+
+    states = streams.create_stream_states(config, STREAMS, device=dev)
+    per_frame, step_ms, whole_equal = [], [], True
+    for k in range(N_FRAMES):
+        lefts = torch.stack([torch.from_numpy(f[k][0])
+                             for f in frames]).to(dev)
+        rights = torch.stack([torch.from_numpy(f[k][1])
+                              for f in frames]).to(dev)
+        ts = torch.full((STREAMS,), 0.1 * k, device=dev)
+        before = dict(read_counts(), lk_track=LK_CALLS[0])
+        sync(dev)
+        t0 = time.perf_counter()
+        states, out = streams.detect_step_streams_scan(
+            model, states, lefts, rights, ts, stereo, config)
+        sync(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        after = dict(read_counts(), lk_track=LK_CALLS[0])
+        counts = {n: after[n] - before[n] for n in after}
+        per_frame.append(counts)
+        for i, o in enumerate(streams.unstack_states(out)):
+            bad = differing_fields(o, singles[i][k])
+            if bad:
+                raise AssertionError(f"streams: stream {i} frame {k}: {bad} "
+                                     "differ from its single-stream run")
+            whole_equal = whole_equal and tree_equal(o, singles[i][k])
+        want = {n: sum(c[k][n] for c in single_counts) for n in counts}
+        if counts != want:
+            raise AssertionError(f"streams: frame {k} launched {counts}, "
+                                 f"the single-stream runs {want}")
+        for name, c in DEFAULT_PATH_KERNELS.items():
+            if counts[name] != STREAMS * c:
+                raise AssertionError(f"streams: frame {k} launched {name} "
+                                     f"{counts[name]} times, not "
+                                     f"{STREAMS} x {c}")
+    try:
+        streams.detect_step_batched(model, states, lefts, rights, ts,
+                                    stereo, config)
+        raise AssertionError("detect_step_batched ran on CUDA tensors")
+    except RuntimeError as e:
+        if "detect_step_streams_scan" not in str(e):
+            raise
+    med = statistics.median(step_ms[1:])
+    launches = [sum(v for n, v in c.items() if n != "lk_track")
+                for c in per_frame]
+    log(f"streams ({card()}): detect_step_streams_scan, {STREAMS} streams "
+        f"at {H}x{W} pwc_v7 scale 2/2, {N_FRAMES} frames each: every "
+        f"stream's {', '.join(STEP_FIELDS)} bit for bit its single-stream "
+        f"run's (whole step output too: {whole_equal}); median "
+        f"{med:.2f} ms per {STREAMS}-stream step = "
+        f"{STREAMS / med * 1e3:.2f} pairs/s (single-stream runs: median "
+        f"{statistics.median(single_ms):.2f} ms/frame); hand-written "
+        f"kernel launches a frame {launches}, per kernel frame 1 "
+        f"{json.dumps(per_frame[1])}; all ms "
+        f"{[round(t, 2) for t in step_ms]}; detect_step_batched refused "
+        "CUDA tensors")
+
+
+def spatial_rank(rank: int, init: str, outdir: str, device: str) -> None:
+    """One rank of the spatial phase, a process of its own on ``device``
+    (both ranks on the one card): gloo over a (data 1, model 2) mesh,
+    ``detect_step_streams_spatial`` on the moving-patch frames; the
+    outputs, launches and step ms go to ``outdir/spatial<rank>.npz``."""
+    import torch.distributed as dist
+
+    from moving_object_detector_tpu_torch.parallel import multihost
+    from moving_object_detector_tpu_torch.parallel.mesh import create_mesh
+    from moving_object_detector_tpu_torch.parallel.spatial import (
+        detect_step_streams_spatial,
+    )
+    from moving_object_detector_tpu_torch.parallel.streams import (
+        create_stream_states,
+        unstack_states,
+    )
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev.index or 0)
+    multihost.initialize(init, 2, rank, backend="gloo")
+    try:
+        mesh = create_mesh(2, model_parallel=2)
+        model, config, stereo = serving_setup(dev)
+        states = create_stream_states(config, 1, device=dev)
+        out, step_ms = collections.defaultdict(list), []
+        reset_counts()
+        for k, (left, right, _) in enumerate(make_frames(SPATIAL_FRAMES)):
+            sync(dev)
+            t0 = time.perf_counter()
+            states, o = detect_step_streams_spatial(
+                model, states, torch.from_numpy(left).to(dev)[None],
+                torch.from_numpy(right).to(dev)[None],
+                torch.full((1,), 0.1 * k, device=dev), stereo, config, mesh,
+                sgm_halo=SGM_HALO, flow_halo=FLOW_HALO)
+            sync(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            (o,) = unstack_states(o)
+            for name, x in (("disparity", o.disparity.disparity),
+                            ("flow", o.flow), ("label", o.label_image),
+                            ("valid", o.detections.valid),
+                            ("center", o.detections.center),
+                            ("velocity", o.detections.velocity),
+                            ("motion", o.motion), ("pose", o.odom_pose)):
+                out[name].append(x.cpu().numpy())
+        np.savez(os.path.join(outdir, f"spatial{rank}.npz"),
+                 counts=json.dumps(read_counts()), step_ms=step_ms,
+                 **{k: np.stack(v) for k, v in out.items()})
+    finally:
+        dist.destroy_process_group()
+
+
+def stripe(img: np.ndarray, r: int, halo: int) -> np.ndarray:
+    """Rank ``r``'s rows of a two-rank split with ``halo`` rows on each
+    side, the image's edge rows repeated beyond its border."""
+    s = img.shape[0] // 2
+    return np.pad(img, ((halo, halo), (0, 0)), mode="edge")[
+        r * s:r * s + s + 2 * halo]
+
+
+def run_spatial(model, config, stereo, dev) -> None:
+    """Two ranks on the one card (gloo, the halo and gather buffers staged
+    through host memory), each running ``detect_step_streams_spatial``
+    at the serving point with bench.py's halos: both ranks' outputs bit
+    for bit equal; the gathered disparity bit for bit the plain SGM of
+    each rank's stripe, cropped and stacked here, and the gathered flow
+    bit for bit the net run here on the same stripes; the disparity
+    against the unsharded full-resolution ``compute_disparity`` with
+    ``tests/test_spatial.py``'s thresholds, the flow against the
+    unsharded ``_flow_forward`` at scale 2; the patch detected; the
+    census, SGM v2 and correlation kernels launched on each rank."""
+    import torch.multiprocessing as mp
+
+    from moving_object_detector_tpu_torch.ops.sgm import (
+        compute_disparity,
+        sgm_disparity_raw,
+    )
+    from moving_object_detector_tpu_torch.pipeline import _flow_forward
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(spatial_rank, args=("file://" + os.path.join(tmp, "store"),
+                                     tmp, str(dev)), nprocs=2, join=True)
+        wall = time.perf_counter() - t0
+        ranks = [dict(np.load(os.path.join(tmp, f"spatial{r}.npz")))
+                 for r in range(2)]
+    for key in ("disparity", "flow", "label", "valid", "center",
+                "velocity", "motion", "pose"):
+        if not np.array_equal(ranks[0][key], ranks[1][key], equal_nan=True):
+            raise AssertionError(f"spatial: the two ranks' {key} differ")
+    plain_sgm = dataclasses.replace(config.sgm, backend="xla")
+    s = H // 2
+
+    def striped(fn, a, b, halo):
+        """fn on each rank's stripe pair, cropped and stacked."""
+        return np.concatenate([fn(
+            *(torch.from_numpy(stripe(x, r, halo)).to(dev) for x in (a, b))
+        )[halo:halo + s].cpu().numpy() for r in range(2)])
+
+    frames = make_frames(SPATIAL_FRAMES)
+    agree, flow_med, patch_med = [], [], []
+    prev = np.zeros((H, W), np.float32)  # the state's blank first image
+    for k, (left, right, x) in enumerate(frames):
+        disp, flow = ranks[0]["disparity"][k], ranks[0]["flow"][k]
+        want = striped(lambda a, b: sgm_disparity_raw(a, b, plain_sgm),
+                       left, right, SGM_HALO)
+        if not np.array_equal(disp, want, equal_nan=True):
+            raise AssertionError(f"spatial: frame {k} disparity is not the "
+                                 "plain SGM of the stripes")
+        want = striped(lambda a, b: _flow_forward(
+            model, a, b, input_scale=config.flow_input_scale,
+            corr_backend=config.flownet.corr_backend), prev, left, FLOW_HALO)
+        if not np.array_equal(flow, want, equal_nan=True):
+            raise AssertionError(f"spatial: frame {k} flow is not the net's "
+                                 "on the stripes")
+        lt, rt = (torch.from_numpy(v).to(dev) for v in (left, right))
+        ref = compute_disparity(lt, rt, stereo, config.sgm).disparity
+        ref = ref.cpu().numpy()
+        both = (ref >= 0) & (disp >= 0)
+        diff = np.abs(ref - disp)[both]
+        agree.append(((ref >= 0).mean(), ((ref >= 0) == (disp >= 0)).mean(),
+                      (diff <= 1.0).mean(), (diff == 0.0).mean()))
+        if not (agree[-1][0] > 0.5 and agree[-1][1] > 0.97
+                and agree[-1][2] > 0.98 and agree[-1][3] > 0.90):
+            raise AssertionError(f"spatial: frame {k} disparity against the "
+                                 f"unsharded SGM: {agree[-1]}")
+        if k:  # frame 0's previous image is blank: no flow to compare
+            ref_flow = _flow_forward(
+                model, torch.from_numpy(prev).to(dev), lt,
+                input_scale=config.flow_input_scale,
+                corr_backend=config.flownet.corr_backend).cpu().numpy()
+            err = np.abs(flow - ref_flow)
+            flow_med.append(float(np.median(err)))
+            patch_med.append(float(np.median(
+                err[PATCH_Y:PATCH_Y + PATCH_H, x:x + PATCH_W])))
+            if not flow_med[-1] < TOL_SPATIAL_FLOW:
+                raise AssertionError(f"spatial: frame {k} flow median "
+                                     f"|diff| {flow_med[-1]} px")
+        prev = left
+    dets = ranks[0]["valid"].sum(axis=1).tolist()
+    if not any(dets[1:]):
+        raise AssertionError("spatial: the moving patch was never detected")
+    counts = [json.loads(str(r["counts"])) for r in ranks]
+    n = SPATIAL_FRAMES
+    for r, c in enumerate(counts):
+        want = {"sgm1_census": n, "sgm_vertical": n, "sgm_horizontal": n,
+                "sgm_wta": n, "corr": len(CORR_LEVELS) * n, "gather": n}
+        bad = {k: c[k] for k, v in want.items() if c[k] != v}
+        if bad or c["gauss_newton"] < 3 * n:
+            raise AssertionError(f"spatial: rank {r} launched {c}")
+    step_ms = [float(t) for t in ranks[0]["step_ms"]]
+    log(f"spatial ({card()}): 2 gloo ranks on one card, (data 1, model 2), "
+        f"{n} frames at {H}x{W} pwc_v7, halos SGM {SGM_HALO} / flow "
+        f"{FLOW_HALO}: ranks bit for bit equal; disparity bit for bit the "
+        f"plain SGM of the {SPATIAL_SGM_STRIPE[0]}x{SPATIAL_SGM_STRIPE[1]} "
+        f"stripes and flow the net's on the {s + 2 * FLOW_HALO}x{W} stripes; "
+        f"disparity against the unsharded full-resolution SGM (valid, "
+        f"status agree, <= 1 px, exact) "
+        f"{[tuple(round(float(v), 4) for v in a) for a in agree]}; flow "
+        f"median |diff| against the unsharded scale-2 flow, frames 1 on, "
+        f"whole image {[round(v, 4) for v in flow_med]} px, on the patch "
+        f"{[round(v, 4) for v in patch_med]} px; detections per frame "
+        f"{dets}; launches rank 0 {json.dumps(counts[0])}, rank 1 "
+        f"{json.dumps(counts[1])}; step ms rank 0 (host-staged gloo "
+        f"transport) median of frames 2 on "
+        f"{statistics.median(step_ms[2:]):.2f}, all "
+        f"{[round(t, 1) for t in step_ms]}; spawn to join {wall:.1f} s")
+
+
+def run_spatial_nccl(model, config, stereo, dev) -> None:
+    """``detect_step_streams_spatial`` over a world of one NCCL rank (this
+    process; device tensors through the all-gather) with no halo, frame
+    by frame bit for bit equal to ``detect_step`` fed the unsharded
+    full-resolution SGM and the unsharded flow."""
+    import socket
+
+    import torch.distributed as dist
+
+    from moving_object_detector_tpu_torch.ops.sgm import compute_disparity
+    from moving_object_detector_tpu_torch.parallel import multihost
+    from moving_object_detector_tpu_torch.parallel.mesh import create_mesh
+    from moving_object_detector_tpu_torch.parallel.spatial import (
+        detect_step_streams_spatial,
+    )
+    from moving_object_detector_tpu_torch.parallel.streams import (
+        create_stream_states,
+        unstack_states,
+    )
+    from moving_object_detector_tpu_torch.pipeline import (
+        PipelineState,
+        _flow_forward,
+        detect_step,
+    )
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    multihost.initialize(f"127.0.0.1:{port}", 1, 0)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}, not nccl")
+        mesh = create_mesh(1, model_parallel=1)
+        states = create_stream_states(config, 1, device=dev)
+        ref_state = PipelineState.create(config, device=dev)
+        for k, (left, right, _) in enumerate(make_frames(SPATIAL_FRAMES)):
+            lt, rt = torch.from_numpy(left).to(dev), torch.from_numpy(
+                right).to(dev)
+            states, out = detect_step_streams_spatial(
+                model, states, lt[None], rt[None],
+                torch.full((1,), 0.1 * k, device=dev), stereo, config, mesh,
+                sgm_halo=0, flow_halo=0)
+            flow = _flow_forward(model, ref_state.prev_left, lt,
+                                 input_scale=config.flow_input_scale,
+                                 corr_backend=config.flownet.corr_backend)
+            ref_state, ref = detect_step(
+                model, ref_state, lt, rt, 0.1 * k, stereo, config,
+                flow_override=flow,
+                disparity_override=compute_disparity(lt, rt, stereo,
+                                                     config.sgm))
+            bad = differing_fields(unstack_states(out)[0], ref)
+            if bad:
+                raise AssertionError(f"spatial, one NCCL rank: frame {k} "
+                                     f"{bad} differ from the unsharded step")
+    finally:
+        dist.destroy_process_group()
+    log(f"spatial, one NCCL rank ({card()}): {SPATIAL_FRAMES} frames, "
+        f"{', '.join(STEP_FIELDS)} bit for bit the unsharded step's")
+
+
+def run_alg(dev) -> None:
+    """The alg toolkit on the card against the same calls on the CPU: the
+    13-channel ICF bank on a 376 x 1242 RGB frame, a kNN store of
+    capacity 4096 (wrapped) queried 256 times, 1,000 online-boosting
+    updates."""
+    from moving_object_detector_tpu_torch.alg import (
+        boosting,
+        classifiers,
+        icf,
+    )
+
+    cpu = torch.device("cpu")
+    tex = np.load(os.path.join(ROOT, "tests", "fixtures",
+                               "real_textures.npz"))
+    base = np.concatenate([tex["china"][:H], tex["flower"][:H]], axis=1)
+    base = base[:, :W].astype(np.float32) / 255.0
+    rgb = np.stack([base, np.roll(base, 300, 1), np.roll(base[::-1], 600, 1)],
+                   axis=-1)
+    bank = icf.default_channel_bank()
+    got = bank(torch.from_numpy(rgb).to(dev)).cpu()
+    ref = bank(torch.from_numpy(rgb))
+    color_err = float((got[:6] - ref[:6]).abs().max())
+    mag_err = float((got[12] - ref[12]).abs().max())
+    # An orientation bin may flip only where the angle lies on a bin edge
+    # to within what the Sobel sums' rounding can move it: they run in
+    # another order on the card, and their f32 error (about 1e-6 on
+    # values up to 8) turns an angle by up to 1e-6 / |g| radians, 2e-5 /
+    # |g| bins with a margin of 10.
+    dx, dy = icf._sobel(icf.rgb_to_gray(torch.from_numpy(rgb)))
+    pos = torch.remainder(torch.atan2(dy, dx), 2 * np.pi) * (6 / np.pi)
+    on_edge = (pos - pos.round()).abs() < 1e-4 + 2e-5 / torch.hypot(dx, dy)
+    flips = (got[6:12].argmax(0) != ref[6:12].argmax(0)) & (ref[12] > 0)
+    bin_flips = int(flips.sum())
+    off_edge_flips = int((flips & ~on_edge).sum())
+    same_bin = (got[6:12] > 0) == (ref[6:12] > 0)
+    bin_err = float(((got[6:12] - ref[6:12]).abs() * same_bin).max())
+    # Colour channels on [0, 255] to 1e-3 (pow, cube root, division in
+    # another library); magnitudes and binned values to 1e-4.
+    if not (color_err <= 1e-3 and mag_err <= 1e-4 and off_edge_flips == 0
+            and bin_err <= 1e-4):
+        raise AssertionError(f"icf bank on the card: colour {color_err}, "
+                             f"magnitude {mag_err}, bin flips {bin_flips} "
+                             f"({off_edge_flips} off an edge), binned "
+                             f"{bin_err}")
+    bank_ms = median_ms(lambda: bank(torch.from_numpy(rgb).to(dev)),
+                        reps=10)
+
+    rng = np.random.default_rng(3)
+    pts = rng.normal(size=(5000, 16)).astype(np.float32)
+    labels = (pts[:, 0] + 0.5 * pts[:, 1] > 0).astype(np.int32)
+    sides = (("card", dev), ("cpu", cpu))
+    stores = {}
+    for side, d in sides:
+        st = classifiers.knn_init(4096, 16, device=d)
+        for p, lab in zip(torch.from_numpy(pts).to(d), labels):
+            st = classifiers.knn_add(st, int(lab), p)
+        stores[side] = st
+    queries = torch.from_numpy(rng.normal(size=(256, 16)).astype(
+        np.float32))
+    worst, ties, votes = 0.0, 0, 0
+    for q in queries:
+        lg, sg = classifiers._knn_neighbors(stores["card"], q.to(dev), 6)
+        lc, sc = classifiers._knn_neighbors(stores["cpu"], q, 6)
+        worst = max(worst, float(((sg.cpu() - sc).abs() / sc).max()))
+        if float(sc[5] - sc[4]) <= 1e-5 * float(sc[5]):
+            ties += 1  # the 5th and 6th neighbours too close to order
+            continue
+        votes += 1
+        if int(classifiers.knn_predict(stores["card"], q.to(dev))) != int(
+                classifiers.knn_predict(stores["cpu"], q)):
+            raise AssertionError("knn on the card votes otherwise")
+    if not worst <= 1e-5:
+        raise AssertionError(f"knn distances differ by {worst} (relative)")
+    t0 = time.perf_counter()
+    classifiers.knn_predict(stores["card"], queries[0].to(dev))
+    sync(dev)
+    knn_ms = (time.perf_counter() - t0) * 1e3
+
+    # tests/test_alg.py's ensemble and classes (4 x 3 stumps, 2-D, means
+    # +-1.5, sd 0.3), 1,000 updates. With overlapping classes the
+    # reference's estimators collapse (lambda >= 1 sets a stump's gain
+    # to 1 and its variance to 0), in both packages.
+    signs = np.where(np.arange(1000) % 2 == 0, 1.0, -1.0).astype(np.float32)
+    samples = (rng.normal(0, 0.3, size=(1000, 2))
+               + 1.5 * signs[:, None]).astype(np.float32)
+    ens = {}
+    for side, d in sides:
+        e = boosting.online_boosting_init(4, 3, 2, subset_size=2, seed=0,
+                                          device=d)
+        xs = torch.from_numpy(samples).to(d)
+        sync(d)
+        t0 = time.perf_counter()
+        for x, lab in zip(xs, signs):
+            e = boosting.online_boosting_update(e, float(lab), x)
+        sync(d)
+        ens[side] = (e, (time.perf_counter() - t0) * 1e3 / len(signs))
+    probe_signs = torch.where(torch.arange(64) % 2 == 0, 1.0, -1.0)
+    probe = (torch.from_numpy(rng.normal(0, 0.3, size=(64, 2)).astype(
+        np.float32)) + 1.5 * probe_signs[:, None])
+    conf_err, acc = 0.0, 0
+    for i, q in enumerate(probe):
+        cg = float(boosting.online_boosting_predict_real(ens["card"][0],
+                                                         q.to(dev)))
+        cc = float(boosting.online_boosting_predict_real(ens["cpu"][0], q))
+        conf_err = max(conf_err, abs(cg - cc))
+        acc += (cg > 0) == (i % 2 == 0)
+        if (cg > 0) != (cc > 0):
+            raise AssertionError("boosting on the card predicts otherwise")
+    lam_err = max(float(((getattr(ens["card"][0], k).cpu()
+                          - getattr(ens["cpu"][0], k)).abs()
+                         / getattr(ens["cpu"][0], k)).max())
+                  for k in ("lambda_corr", "lambda_wrong"))
+    # 1,000 updates through recursive estimators whose exp and sqrt come
+    # from another library: accumulators to 1e-3 relative, confidences to
+    # 1e-3, every prediction's sign equal.
+    if not (conf_err <= 1e-3 and lam_err <= 1e-3 and acc == len(probe)):
+        raise AssertionError(f"boosting on the card: confidence {conf_err}, "
+                             f"accumulators {lam_err} (relative)")
+    log(f"alg ({card()}): ICF bank 13 x {H} x {W} {bank_ms:.3f} ms "
+        f"(upload included), against the CPU colour max |diff| "
+        f"{color_err:.3g}, magnitude {mag_err:.3g}, {bin_flips} orientation "
+        f"bins flipped of {H * W} pixels (all on a bin edge), binned values "
+        f"{bin_err:.3g}; kNN capacity 4096 after "
+        f"5,000 adds: 256 queries, distances within {worst:.3g} relative, "
+        f"{votes} votes equal ({ties} near ties skipped), one query "
+        f"{knn_ms:.2f} ms; online boosting 4 x 3 stumps, 1,000 updates: "
+        f"{ens['card'][1]:.2f} ms an update on the card, "
+        f"{ens['cpu'][1]:.2f} on the CPU, confidences within "
+        f"{conf_err:.3g}, accumulators {lam_err:.3g} relative, "
+        f"{acc} of {len(probe)} probes right")
 
 
 if __name__ == "__main__":

@@ -25,7 +25,10 @@ MODULES = ("config", "types", "tunables", "_build", "ops.geometry",
            "utils.checkpoint", "utils.profiling", "utils.frames",
            "egomotion", "sceneflow", "clusterer", "tracker", "pipeline",
            "eval", "io", "io.readers", "io.viz", "io.frame_ring",
-           "io.scenes", "io.dashboard", "io.runner", "run")
+           "io.scenes", "io.dashboard", "io.runner", "run", "parallel",
+           "parallel.mesh", "parallel.streams", "parallel.spatial",
+           "parallel.multihost", "alg", "alg.gaussian", "alg.classifiers",
+           "alg.boosting", "alg.icf")
 
 
 def test_import_leaves_jax_out():

@@ -933,3 +933,147 @@ def test_harvest_with_the_dashboard_launches_no_kernel(cuda):
         assert runner.kernels == [0] * 4, runner.kernels
         copies.append(runner.copies)
     assert all(b > a for a, b in zip(*copies)), copies
+
+
+def _small_serving(cuda, h=192, w=640):
+    """A random-weight flow net and the default backends at a small size:
+    (model, config, stereo, frames) with a textured background at
+    disparity 9 and a patch at 20 moving 6 px a frame."""
+    from moving_object_detector_tpu_torch import config as tcfg
+    from moving_object_detector_tpu_torch.models.pwc_net import PWCNet
+    from moving_object_detector_tpu_torch.types import StereoModel
+
+    config = tcfg.PipelineConfig(height=h, width=w, flownet=tcfg.FlowNetConfig(
+        feature_channels=(8, 16, 32), search_range=2, use_context_net=False,
+        dtype="float32"))
+    torch.manual_seed(0)
+    model = PWCNet(config.flownet).to(cuda)
+    stereo = StereoModel.create(300.0, 300.0, w / 2, h / 2, 0.5, device=cuda)
+    rng = np.random.default_rng(7)
+    bg = rng.uniform(0, 1, (h, w)).astype(np.float32)
+    obj = rng.uniform(0, 1, (40, 60)).astype(np.float32)
+    frames = []
+    for k in range(3):
+        left, right = bg.copy(), np.roll(bg, -9, axis=1)
+        x = 200 + 6 * k
+        left[60:100, x:x + 60] = obj
+        right[60:100, x - 20:x + 40] = obj
+        frames.append((torch.from_numpy(left).to(cuda),
+                       torch.from_numpy(right).to(cuda)))
+    return model, config, stereo, frames
+
+
+def _launch_counts():
+    counters = (sgm_cuda.LAUNCHES, sgm_v1_cuda.LAUNCHES,
+                flow_corr_cuda.LAUNCHES, gather_cuda.LAUNCHES,
+                clustering_cuda.LAUNCHES, cluster_stats_cuda.LAUNCHES,
+                sceneflow_cuda.LAUNCHES, gauss_newton_cuda.LAUNCHES)
+    return {k: v for c in counters for k, v in c.items()}
+
+
+def test_streams_scan_launches_n_times_the_single_stream_kernels(cuda):
+    """Two streams a frame: each stream bit for bit its single-stream run,
+    the frame's launches the two single-stream frames' summed."""
+    from moving_object_detector_tpu_torch.parallel import streams
+    from moving_object_detector_tpu_torch.pipeline import (
+        PipelineState,
+        detect_step,
+    )
+
+    model, config, stereo, frames = _small_serving(cuda)
+    flipped = [(torch.flip(a, (1,)), torch.flip(b, (1,)))
+               for a, b in frames]  # the second stream's own frames
+    per_stream = [frames, flipped]
+    single = []
+    for f in per_stream:
+        state = PipelineState.create(config, device=cuda)
+        outs = []
+        for k, (left, right) in enumerate(f):
+            before = _launch_counts()
+            state, out = detect_step(model, state, left, right, 0.1 * k,
+                                     stereo, config)
+            after = _launch_counts()
+            outs.append((out, {n: after[n] - before[n] for n in after}))
+        single.append(outs)
+    states = streams.create_stream_states(config, 2, device=cuda)
+    for k in range(len(frames)):
+        before = _launch_counts()
+        states, out = streams.detect_step_streams_scan(
+            model, states, torch.stack([f[k][0] for f in per_stream]),
+            torch.stack([f[k][1] for f in per_stream]),
+            torch.full((2,), 0.1 * k, device=cuda), stereo, config)
+        after = _launch_counts()
+        counts = {n: after[n] - before[n] for n in after}
+        assert counts == {n: single[0][k][1][n] + single[1][k][1][n]
+                          for n in counts}
+        for name in ("sgm1_census", "sgm_vertical", "sgm_horizontal",
+                     "sgm_wta", "gather"):
+            assert counts[name] == 2, (name, counts)
+        assert counts["corr"] == 2 * single[0][k][1]["corr"] > 0
+        for i, o in enumerate(streams.unstack_states(out)):
+            ref = single[i][k][0]
+            for f in ("disparity", "flow", "label_image", "motion",
+                      "odom_pose"):
+                a, b = getattr(o, f), getattr(ref, f)
+                a = a.disparity if f == "disparity" else a
+                b = b.disparity if f == "disparity" else b
+                assert torch.equal(a, b), (k, i, f)
+    with pytest.raises(RuntimeError, match="detect_step_streams_scan"):
+        streams.detect_step_batched(model, states, frames[0][0][None],
+                                    frames[0][1][None],
+                                    torch.zeros(1, device=cuda), stereo,
+                                    config)
+
+
+def test_spatial_step_on_one_nccl_rank_equals_the_unsharded_step(cuda):
+    """``detect_step_streams_spatial`` over a world of one NCCL rank (device
+    tensors through the all-gather) with no halo: bit for bit
+    ``detect_step`` fed the unsharded SGM and flow."""
+    import socket
+
+    import torch.distributed as dist
+
+    from moving_object_detector_tpu_torch.ops.sgm import compute_disparity
+    from moving_object_detector_tpu_torch.parallel import multihost
+    from moving_object_detector_tpu_torch.parallel.mesh import create_mesh
+    from moving_object_detector_tpu_torch.parallel.spatial import (
+        detect_step_streams_spatial,
+    )
+    from moving_object_detector_tpu_torch.parallel.streams import (
+        create_stream_states,
+        unstack_states,
+    )
+    from moving_object_detector_tpu_torch.pipeline import (
+        PipelineState,
+        _flow_forward,
+        detect_step,
+    )
+
+    model, config, stereo, frames = _small_serving(cuda)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    multihost.initialize(f"127.0.0.1:{port}", 1, 0)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = create_mesh(1, model_parallel=1)
+        states = create_stream_states(config, 1, device=cuda)
+        ref_state = PipelineState.create(config, device=cuda)
+        for k, (left, right) in enumerate(frames):
+            states, out = detect_step_streams_spatial(
+                model, states, left[None], right[None],
+                torch.full((1,), 0.1 * k, device=cuda), stereo, config, mesh,
+                sgm_halo=0, flow_halo=0)
+            flow = _flow_forward(model, ref_state.prev_left, left)
+            ref_state, ref = detect_step(
+                model, ref_state, left, right, 0.1 * k, stereo, config,
+                flow_override=flow,
+                disparity_override=compute_disparity(left, right, stereo,
+                                                     config.sgm))
+            (out,) = unstack_states(out)
+            assert torch.equal(out.disparity.disparity,
+                               ref.disparity.disparity)
+            for f in ("flow", "label_image", "motion", "odom_pose"):
+                assert torch.equal(getattr(out, f), getattr(ref, f)), (k, f)
+    finally:
+        dist.destroy_process_group()
