@@ -4,7 +4,7 @@
 
 1. Builds the CUDA kernels from ``moving_object_detector_tpu_torch/csrc``
    (one nvcc per source, in parallel) and prints the build seconds.
-2. Holds each of the thirteen kernels against its plain PyTorch version on
+2. Holds each of the fourteen kernels against its plain PyTorch version on
    the card, at the serving shapes and at an odd shape: the census pair,
    SGM deltas and disparity bitwise (v2, also at the spatial path's
    252 x 1242 stripe; the WTA for every combination of ``subpixel``,
@@ -12,7 +12,11 @@
    widths that are and are not a multiple of 4, on a constant pair and on
    random int8 volumes), the v1 census pair, cost volume, aggregated total
    and disparity bitwise, the correlation within 1e-5 for r = 1..4 and
-   B = 1, 2 with two runs bit-identical, the windowed gather equal with
+   B = 1, 2 with two runs bit-identical, the correlation's backward
+   (``corr_backward``) at the four levels of a train step (192 x 448,
+   batch 8) and the odd shapes of ``tests/corr_grad_cases.py`` within 1e-5
+   of the gradients' scale with two runs bit-identical and each training
+   level timed against its bound, the windowed gather equal with
    NaN positions equal, the connected components exactly on six kinds of
    input (three runs each), the cluster stats exactly (min / max by
    value; a NaN member coordinate gives NaN), the fused scene-flow
@@ -146,7 +150,26 @@
 14. alg: the 13-channel ICF bank on a 376 x 1242 RGB frame, a kNN store
    of capacity 4096 and 1,000 online-boosting updates on the card,
    against the same calls on the CPU within stated tolerances.
-15. Prints the card's name and power limit, a ``{"kernels": [...]}`` line
+15. Training (``train/*``): pwc_v7 from the bundled weights at
+   ``train_flow.py``'s defaults (192 x 448, batch 8, scenes made on the
+   card by ``train.data_synth.generate_batch``). One ``train_step`` with
+   the correlation kernels against the same step with
+   ``corr_backend="xla"`` (loss within 1e-4 and the gradient's norm within
+   1e-2, relative; the kernel step launches 4 forward and 4 backward
+   correlations, the plain one neither); then the main path, the chunked
+   trainer (``make_chunked_train_step``, 2 chunks of 25 steps, ``pool=1``,
+   constant lr 1e-4; the second chunk with synchronizing CUDA calls made
+   errors): every step launches the 4 + 4 correlation kernels and nothing
+   else, and the second chunk's mean loss must be below the first's.
+   Prints the median step ms (10 steps synchronized one by one), samples/s,
+   kernel launches and device busy share of a profiled step, the peak
+   memory allocated. Then ``train_flow.main`` in process for 20 steps from
+   pwc_v7 into an ``.npz``, whose weights serve 2 frames through
+   ``detect_step`` with finite flow; and pwc_v7 scored on the port's
+   seeded scenes as ``tests/test_flow_quality.py`` scores it (4 pairs at
+   192 x 448 scale 1 and 384 x 896 scale 2: mean EPE < 4.5 px and < half
+   the zero-flow EPE).
+16. Prints the card's name and power limit, a ``{"kernels": [...]}`` line
    and, last, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, before printing any result, without CUDA or without the
@@ -762,6 +785,75 @@ def check_corr_kernel(dev, report):
         source="moving_object_detector_tpu_torch/csrc/corr.cu",
         replaces="ops/flow_corr_pallas.py:88 correlation_pallas "
                  "(_corr_kernel :37)",
+        max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def corr_grad_bytes_ops(b, c, h, w):
+    """Bytes and operations of one correlation backward at r = 4: f1, f2
+    and g read once, g1 and g2 written once; a multiply-add for each of
+    the 81 offsets, channels and pixels, for both gradients."""
+    return (4 * b * c * h * w + 81 * b * h * w) * 4, 2 * 2 * 81 * b * c * h * w
+
+
+def check_corr_backward_kernel(dev, report):
+    """``corr_backward`` against the plain ``correlation_backward`` at the
+    train step's four levels and the odd shapes of
+    ``tests/corr_grad_cases.py``: within TOL_CORR_GRAD of the gradients'
+    scale, two runs bit-identical; each training level timed."""
+    from corr_grad_cases import (
+        ODD_CASES,
+        TOL_CORR_GRAD,
+        TRAIN_LEVELS,
+        grad_case,
+        grad_error,
+    )
+    from moving_object_detector_tpu_torch.ops import flow_corr_cuda, flow_ops
+
+    err = 0.0
+    ms = dev_ms = plain_ms = t_bytes = t_ops = 0.0
+    levels = []
+    for b, c, h, w, r in [lvl + (4,) for lvl in TRAIN_LEVELS] + ODD_CASES:
+        f1, f2, g = (torch.from_numpy(x).to(dev)
+                     for x in grad_case(b, c, h, w, r))
+        out = flow_corr_cuda.corr_backward(f1, f2, g, r)
+        ref = flow_ops.correlation_backward(f1, f2, g, r)
+        e = grad_error([o.cpu() for o in out], [x.cpu() for x in ref])
+        if not e <= TOL_CORR_GRAD:
+            raise AssertionError(
+                f"corr_backward differs at {b}x{c}x{h}x{w} r={r}: {e}")
+        again = flow_corr_cuda.corr_backward(f1, f2, g, r)
+        if not all(torch.equal(x, y) for x, y in zip(out, again)):
+            raise AssertionError(f"corr_backward differs between two runs "
+                                 f"at {b}x{c}x{h}x{w} r={r}")
+        err = max(err, e)
+        if (b, c, h, w) not in TRAIN_LEVELS or r != 4:
+            continue
+        t = timed(lambda: flow_corr_cuda.corr_backward(f1, f2, g, 4),
+                  lambda: flow_ops.correlation_backward(f1, f2, g, 4))
+        nbytes, ops = corr_grad_bytes_ops(b, c, h, w)
+        lvl_bound, lvl_by = bound_ms(nbytes, ops)
+        levels.append(dict(shape=[b, c, h, w], ms=t["ms"],
+                           device_ms=t["device_ms"], plain_ms=t["plain_ms"],
+                           bound_ms=lvl_bound, bound_by=lvl_by))
+        log(f"corr_backward at {b}x{c}x{h}x{w} r=4: {t['ms']:.4f} ms, on the "
+            f"device {t['device_ms']:.4f} ms, bound {lvl_bound:.4f} "
+            f"({lvl_by}), plain {t['plain_ms']:.4f}")
+        ms += t["ms"]
+        dev_ms += t["device_ms"]
+        plain_ms += t["plain_ms"]
+        t_bytes += nbytes
+        t_ops += ops
+    log(f"corr_backward within {err:.3g} of plain (tolerance {TOL_CORR_GRAD}"
+        f" of the gradients' scale), two runs bit-identical, at the "
+        f"{len(TRAIN_LEVELS)} training levels and {len(ODD_CASES)} odd "
+        f"shapes; per level: " + json.dumps(levels))
+    bms, by = bound_ms(t_bytes, t_ops)
+    report["corr_backward"] = dict(
+        name="corr_backward", route="cuda",
+        source="moving_object_detector_tpu_torch/csrc/corr_bwd.cu",
+        replaces="ops/flow_corr_pallas.py:151 _corr_bwd (custom_vjp of "
+                 "correlation_pallas :88)",
         max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
         bound_ms=bms, bound_by=by, library_ms=None)
 
@@ -1579,13 +1671,14 @@ def serving_setup(dev):
 
 
 def run_checks_and_paths(dev, report) -> None:
-    """Phases 2 to 14 of the module docstring; raises on the first
+    """Phases 2 to 15 of the module docstring; raises on the first
     failure."""
     count_lk_calls()
 
     check_sgm_kernels(dev, report)
     check_sgm_v1_kernels(dev, report)
     check_corr_kernel(dev, report)
+    check_corr_backward_kernel(dev, report)
     check_gather_kernel(dev, report)
     cc_serving = check_cc_kernel(dev, report)
     check_stats_kernel(dev, report, cc_serving)
@@ -1621,6 +1714,8 @@ def run_checks_and_paths(dev, report) -> None:
     check_gauss_newton_per_frame(main_per_frame, "the default path")
     if launches.pop("sceneflow_fused") != 0:
         raise AssertionError("the default path launched the fused construct")
+    if launches.pop("corr_backward") != 0:
+        raise AssertionError("serving launched the correlation backward")
     for name in V1_ONLY_KERNELS:
         if launches.pop(name) != 0:
             raise AssertionError(f"the default path launched {name}")
@@ -1777,6 +1872,7 @@ def run_checks_and_paths(dev, report) -> None:
     run_spatial(model, config, stereo, dev)
     run_spatial_nccl(model, config, stereo, dev)
     run_alg(dev)
+    run_training(model, config, stereo, frames, dev, report)
 
 
 def check_serving_gauss_newton(model, config, stereo, frames, dev) -> None:
@@ -3018,6 +3114,193 @@ def run_alg(dev) -> None:
         f"{conf_err:.3g}, accumulators {lam_err:.3g} relative, "
         f"{acc} of {len(probe)} probes right")
 
+
+TRAIN_CHUNK = 25  # steps a chunk of the chunked trainer (two chunks)
+TRAIN_TIMED_STEPS = 10  # synchronized steps timed one by one
+TRAIN_CLI_STEPS = 20  # train_flow.main's run, two chunks
+# One pwc_v7 step with the correlation kernels against the same step with
+# the plain correlation under autograd, relative: the loss, and the
+# gradient's global norm, which the bf16 net, cuDNN's backward and the
+# warp's scatter-add backward (atomics) move from run to run.
+TOL_TRAIN_LOSS = 1e-4
+TOL_TRAIN_NORM = 1e-2
+QUALITY_EPE = 4.5  # tests/test_flow_quality.py's floor, px
+
+
+def train_net(dev, corr_backend: str = "auto"):
+    """pwc_v7 from the bundled weights, its correlation on
+    ``corr_backend``."""
+    from moving_object_detector_tpu_torch import config as cfgmod
+    from moving_object_detector_tpu_torch.utils.checkpoint import (
+        load_flow_checkpoint,
+    )
+
+    model, _ = load_flow_checkpoint(
+        os.path.join(ROOT, "weights", "pwc_v7.fp16.npz"),
+        cfgmod.FlowNetConfig(corr_backend=corr_backend), device=dev)
+    return model
+
+
+def only_corr_launched(counts: dict, n: int, what: str) -> None:
+    """``n`` launches of each correlation kernel and none of any other."""
+    want = {k: (n if k in ("corr", "corr_backward") else 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+
+
+def run_training(model, config, stereo, frames, dev, report) -> None:
+    """Phase 15: flow-net training of pwc_v7 at train_flow.py's defaults
+    (192 x 448, batch 8, "auto" backends) from the bundled weights."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from corr_grad_cases import TRAIN_BATCH, TRAIN_HW, TRAIN_LEVELS
+    from moving_object_detector_tpu_torch.eval import flow_epe
+    from moving_object_detector_tpu_torch.pipeline import _flow_forward
+    from moving_object_detector_tpu_torch.train import (
+        data_synth,
+        flow_trainer,
+        train_flow,
+    )
+    from moving_object_detector_tpu_torch.utils.checkpoint import (
+        load_flow_checkpoint,
+    )
+
+    (h, w), b = TRAIN_HW, TRAIN_BATCH
+    n_corr = len(TRAIN_LEVELS)
+    batch = data_synth.generate_batch(
+        torch.Generator(device=dev).manual_seed(0), b, h, w)
+    first = {}
+    for backend in ("auto", "xla"):
+        net = train_net(dev, backend)
+        state, tx = flow_trainer.create_train_state(net)
+        reset_counts()
+        state, m = flow_trainer.train_step(net, tx, state, batch)
+        sync(dev)
+        first[backend] = (float(m["loss"]), float(m["grad_norm"]))
+        only_corr_launched(read_counts(), n_corr if backend == "auto" else 0,
+                           f"one train step, corr_backend {backend}")
+    (lk, nk), (lp, np_) = first["auto"], first["xla"]
+    loss_err, norm_err = abs(lk / lp - 1), abs(nk / np_ - 1)
+    log(f"one pwc_v7 train step {h}x{w} batch {b}: kernels loss {lk:.7g} "
+        f"grad norm {nk:.7g}, plain correlation loss {lp:.7g} grad norm "
+        f"{np_:.7g}: relative {loss_err:.3g} (tolerance {TOL_TRAIN_LOSS}), "
+        f"{norm_err:.3g} ({TOL_TRAIN_NORM})")
+    if not (loss_err <= TOL_TRAIN_LOSS and norm_err <= TOL_TRAIN_NORM):
+        raise AssertionError("the kernels' train step differs from the "
+                             "plain one")
+
+    # The main path: the chunked trainer, fresh scenes made on the card
+    # from a pool of one, constant lr 1e-4; the second chunk with
+    # synchronizing CUDA calls made errors.
+    net = train_net(dev)
+    state, tx = flow_trainer.create_train_state(net, learning_rate=1e-4)
+    chunk_fn, state = flow_trainer.make_chunked_train_step(
+        net, tx, state, h, w, b, TRAIN_CHUNK, pool=1)
+    reset_counts()
+    chunk_ms, chunk_loss = [], []
+    for k in range(2):
+        sync(dev)
+        t0 = time.perf_counter()
+        if k:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, m = chunk_fn(state)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        chunk_loss.append(float(m["loss"]))  # the chunk's one host read
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_counts()
+    only_corr_launched(launches, 2 * TRAIN_CHUNK * n_corr,
+                       "the chunked trainer")
+    report["corr_backward"]["launches"] = launches["corr_backward"]
+    log(f"chunked trainer, 2 x {TRAIN_CHUNK} steps, pool 1: mean loss "
+        f"{chunk_loss[0]:.5f} then {chunk_loss[1]:.5f}; chunk wall ms "
+        f"{[round(t, 1) for t in chunk_ms]} (the second: no synchronizing "
+        f"call); launches {json.dumps(launches)}")
+    if not chunk_loss[1] < chunk_loss[0]:
+        raise AssertionError(f"the second chunk's loss {chunk_loss[1]} is "
+                             f"not below the first's {chunk_loss[0]}")
+
+    # Steps one by one: wall ms, memory, and one profiled step.
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(TRAIN_TIMED_STEPS):
+        sync(dev)
+        t0 = time.perf_counter()
+        state, m = flow_trainer.train_step(net, tx, state, batch)
+        sync(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = statistics.median(step_ms)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, m = flow_trainer.train_step(net, tx, state, batch)
+        sync(dev)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time for e in kernels) / 1e3
+    corr_dev = {name: sum(e.device_time for e in kernels if name in e.name)
+                / 1e3 for name in ("corr_kernel", "corr_bwd_kernel")}
+    train = dict(card=card(), step_ms_median=med, step_ms=step_ms,
+                 samples_per_s=b / med * 1e3,
+                 chunk_step_ms=chunk_ms[1] / TRAIN_CHUNK,
+                 launches_per_step=len(kernels),
+                 corr_launches_per_step=n_corr,
+                 corr_backward_launches_per_step=n_corr,
+                 device_busy_ms=busy_ms, device_busy_share=busy_ms / med,
+                 corr_device_ms=corr_dev["corr_kernel"],
+                 corr_backward_device_ms=corr_dev["corr_bwd_kernel"],
+                 max_memory_allocated_gb=peak_gb,
+                 first_step_loss_rel_err=loss_err,
+                 first_step_grad_norm_rel_err=norm_err,
+                 chunk_mean_loss=chunk_loss)
+
+    # The CLI in process from pwc_v7 to an .npz, then served.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trained.npz")
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = train_flow.main([
+                "--steps", str(TRAIN_CLI_STEPS), "--chunk",
+                str(TRAIN_CLI_STEPS // 2), "--height", str(h), "--width",
+                str(w), "--batch", str(b), "--resume",
+                os.path.join(ROOT, "weights", "pwc_v7.fp16.npz"),
+                "--checkpoint", path])
+        lines = out.getvalue().splitlines()
+        if rc != 0 or len(lines) != 2 or not os.path.exists(path):
+            raise AssertionError(f"train_flow.main returned {rc}: "
+                                 f"{lines} {err.getvalue()[-2000:]}")
+        trained, tcfg = load_flow_checkpoint(path, config.flownet,
+                                             device=dev)
+    outs, _ = run_frames(trained, config.replace(flownet=tcfg), stereo,
+                         frames[:2], dev)
+    if not all(bool(torch.isfinite(o.flow).all()) for o in outs):
+        raise AssertionError("the trained weights serve a non-finite flow")
+    log(f"train_flow.main {TRAIN_CLI_STEPS} steps: {lines}; its .npz "
+        f"served 2 frames "
+        f"through detect_step with finite flow")
+
+    # The port's generator scored as tests/test_flow_quality.py does.
+    quality = {}
+    for hh, ww, scale in ((192, 448, 1), (384, 896, 2)):
+        data = data_synth.generate_batch(
+            torch.Generator(device=dev).manual_seed(0), 4, hh, ww)
+        epes, zero = [], []
+        for i in range(4):
+            flow = _flow_forward(model, data["img1"][i, 0],
+                                 data["img2"][i, 0], input_scale=scale)
+            gt = data["flow"][i].permute(1, 2, 0).cpu().numpy()
+            epes.append(flow_epe(flow.cpu().numpy(), gt)["epe"])
+            zero.append(flow_epe(np.zeros_like(gt), gt)["epe"])
+        epe, zero_epe = float(np.mean(epes)), float(np.mean(zero))
+        quality[f"{hh}x{ww} scale {scale}"] = dict(epe=epe,
+                                                   zero_flow_epe=zero_epe)
+        if not (epe < QUALITY_EPE and epe < 0.5 * zero_epe):
+            raise AssertionError(f"pwc_v7 on the port's scenes at {hh}x{ww}"
+                                 f" scale {scale}: EPE {epe} (zero flow "
+                                 f"{zero_epe})")
+    train["quality"] = quality
+    log("training: " + json.dumps(train))
 
 if __name__ == "__main__":
     sys.exit(main())

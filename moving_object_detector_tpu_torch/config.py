@@ -31,13 +31,6 @@ import dataclasses
 from typing import Tuple
 
 
-def _unported(field: str, value, item: str):
-    raise NotImplementedError(
-        f"{field}={value!r} is not ported to the PyTorch package yet "
-        f"(ROADMAP.md {item})"
-    )
-
-
 @dataclasses.dataclass(frozen=True)
 class SceneFlowConfig:
     """Scene-flow construction knobs.
@@ -335,9 +328,8 @@ class FlowNetConfig:
     def __post_init__(self):
         if self.corr_backend not in ("auto", "pallas", "xla"):
             raise ValueError(f"unknown corr_backend {self.corr_backend!r}")
-        if self.warp_backend != "gather":
-            _unported("FlowNetConfig.warp_backend", self.warp_backend,
-                      "Queue 1, ops/flow_ops.py warp_two_pass")
+        if self.warp_backend not in ("gather", "two_pass"):
+            raise ValueError(f"unknown warp_backend {self.warp_backend!r}")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -30,8 +30,10 @@ def _dtype(cfg: FlowNetConfig) -> torch.dtype:
 
 
 def _correlation_dispatch(f1, f2, search_range: int, backend: str):
-    """FlowNetConfig.corr_backend: "pallas" = the CUDA kernel (its plain
-    version on CPU tensors), "xla" = the plain form, "auto" by device."""
+    """FlowNetConfig.corr_backend: "pallas" = the CUDA kernels forward and
+    backward (``flow_corr_cuda.correlation``, a ``torch.autograd.Function``;
+    its plain versions on CPU tensors), "xla" = the plain form under
+    autograd, "auto" by device."""
     if resolve_backend(backend, f1.device) == "pallas":
         from ..ops.flow_corr_cuda import correlation
 
@@ -46,16 +48,34 @@ def _same_pad(size: int, k: int, stride: int, dilation: int):
     return total // 2, total - total // 2
 
 
+# Standard deviation of a unit normal truncated to [-2, 2]: Flax's
+# variance_scaling divides by it so the truncated draw keeps its variance.
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight: torch.Tensor, generator=None) -> torch.Tensor:
+    """Flax's default ``nn.Conv`` kernel init, ``lecun_normal``, in place:
+    a normal of variance 1 / fan_in (fan_in = in channels x kernel area)
+    truncated at +-2 standard deviations."""
+    fan_in = weight.shape[1] * weight.shape[2] * weight.shape[3]
+    with torch.no_grad():
+        nn.init.trunc_normal_(weight, 0.0, 1.0, -2.0, 2.0,
+                              generator=generator)
+        weight.mul_(math.sqrt(1.0 / fan_in) / _TRUNC_STD)
+    return weight
+
+
 class Conv(nn.Module):
     """Flax ``nn.Conv`` semantics: SAME padding; input, kernel and bias
-    cast to ``dtype`` before the convolution."""
+    cast to ``dtype`` before the convolution; Flax's initialisation
+    (``lecun_normal`` kernel, zero bias)."""
 
     def __init__(self, cin: int, cout: int, k: int = 3, stride: int = 1,
                  dilation: int = 1, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
         self.bias = nn.Parameter(torch.zeros(cout))
-        nn.init.normal_(self.weight, std=1.0 / math.sqrt(cin * k * k))
+        lecun_normal_(self.weight)
         self.stride = stride
         self.dilation = dilation
         self.dtype = dtype
@@ -194,7 +214,9 @@ class PWCNet(nn.Module):
                 size = (f1.shape[2], f1.shape[3])
                 flow = flow_ops.resize_bilinear(flow, size) * ratio
                 up_feat = flow_ops.resize_bilinear(up_feat, size)
-                warped = flow_ops.warp(f2, flow.to(dt))
+                warp = (flow_ops.warp_two_pass
+                        if cfg.warp_backend == "two_pass" else flow_ops.warp)
+                warped = warp(f2, flow.to(dt))
                 corr_in = [up_feat.to(dt), flow.to(dt)]
             corr = _correlation_dispatch(
                 f1.float(), warped.float(), cfg.search_range,
@@ -214,6 +236,19 @@ class PWCNet(nn.Module):
             up_feat = up
         full = flow_ops.resize_bilinear(flow, (h, w)) * (h / flow.shape[2])
         return full, flows[::-1]
+
+
+def init_pwc_params(model: PWCNet, generator: torch.Generator | None = None
+                    ) -> PWCNet:
+    """Draw every parameter afresh as Flax initialises the JAX net:
+    ``lecun_normal`` kernels from ``generator`` (the training CLI's
+    ``--seed``), zero biases. The draws are not the JAX package's."""
+    for m in model.modules():
+        if isinstance(m, Conv):
+            lecun_normal_(m.weight, generator)
+            with torch.no_grad():
+                m.bias.zero_()
+    return model
 
 
 def infer_flow_config(shapes: dict, base: FlowNetConfig | None = None

@@ -1,10 +1,15 @@
-"""Wrapper of the PWC-Net correlation CUDA kernel (``csrc/corr.cu``).
+"""Wrappers of the PWC-Net correlation CUDA kernels (``csrc/corr.cu``,
+``csrc/corr_bwd.cu``) and the differentiable correlation built on them.
 
 Replaces the JAX package's Pallas kernel ``correlation_pallas``
-(``ops/flow_corr_pallas.py``), forward only: training needs the backward
-and comes in a later slice. For a CUDA tensor the wrapper launches the
-kernel and adds one to ``LAUNCHES["corr"]``; for a CPU tensor it runs the
-plain version ``flow_ops.correlation``. A failed build or launch raises.
+(``ops/flow_corr_pallas.py``), a custom VJP whose backward
+differentiates the XLA form. Here ``correlation`` is a
+``torch.autograd.Function``: on CUDA tensors its forward launches
+``corr_forward`` and its backward ``corr_backward``, each adding one to
+its count in ``LAUNCHES`` ("corr", "corr_backward"); on CPU tensors both
+directions run the plain versions ``flow_ops.correlation`` and
+``flow_ops.correlation_backward``. A failed build or launch raises;
+nothing falls back to autograd through the plain form on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -12,55 +17,119 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from .. import _build
 from . import flow_ops
 
-LAUNCHES = {"corr": 0}
+LAUNCHES = {"corr": 0, "corr_backward": 0}
 MAX_GRID = 65535  # blocks along a grid's second and third dimension
-_typed = False
+_typed = set()
 
 
-def _lib():
-    global _typed
-    lib = _build.load("corr")
-    if not _typed:
+def _lib(name: str):
+    lib = _build.load(name)
+    if name not in _typed:
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.corr_forward.argtypes = [P, P, P, I, I, I, I, I, P]
-        lib.corr_forward.restype = I
-        _typed = True
+        if name == "corr":
+            lib.corr_forward.argtypes = [P, P, P, I, I, I, I, I, P]
+            lib.corr_forward.restype = I
+        else:
+            lib.corr_backward.argtypes = [P, P, P, P, P, I, I, I, I, I, P]
+            lib.corr_backward.restype = I
+        _typed.add(name)
     return lib
+
+
+def _kernel_inputs(f1: torch.Tensor, f2: torch.Tensor, search_range: int,
+                   g: torch.Tensor | None = None) -> tuple:
+    """The kernels' refusals, for any tensor not on the CPU; returns the
+    inputs made contiguous."""
+    tensors = (f1, f2) if g is None else (f1, f2, g)
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("the correlation kernels take f32 inputs")
+    if f1.dim() != 4 or f1.shape != f2.shape:
+        raise ValueError(f"shapes {tuple(f1.shape)} / {tuple(f2.shape)} "
+                         "must be equal (B, C, H, W)")
+    if not 1 <= search_range <= 4:
+        raise ValueError(f"search_range {search_range}: the kernels are "
+                         "built for 1..4")
+    b, c, h, w = f1.shape
+    if min(b, c, h, w) < 1 or h > MAX_GRID or b > MAX_GRID:
+        raise ValueError(f"shape {tuple(f1.shape)}: the kernels take "
+                         f"non-empty inputs with B, H <= {MAX_GRID} (their "
+                         "grid is tiles x H x B)")
+    if g is not None and tuple(g.shape) != (b, (2 * search_range + 1) ** 2,
+                                           h, w):
+        raise ValueError(f"gradient shape {tuple(g.shape)} is not the "
+                         f"output's ({b}, {(2 * search_range + 1) ** 2}, "
+                         f"{h}, {w})")
+    if any(t.device.type != "cuda" or t.device != f1.device
+           for t in tensors):
+        raise ValueError("correlation inputs must be CUDA tensors on one "
+                         "device")
+    return tuple(t.contiguous() for t in tensors)
+
+
+def corr_forward(f1: torch.Tensor, f2: torch.Tensor,
+                 search_range: int = 4) -> torch.Tensor:
+    """(B, C, H, W) f32 pair -> (B, (2r+1)^2, H, W) f32 mean-channel local
+    cost volume, dy-major offsets, zero outside the image. The kernel on
+    CUDA tensors, the plain version on CPU tensors."""
+    if f1.device.type == "cpu" and f2.device.type == "cpu":
+        return flow_ops.correlation(f1, f2, search_range)
+    f1, f2 = _kernel_inputs(f1, f2, search_range)
+    b, c, h, w = f1.shape
+    k = (2 * search_range + 1) ** 2
+    out = torch.empty((b, k, h, w), dtype=torch.float32, device=f1.device)
+    rc = _lib("corr").corr_forward(f1.data_ptr(), f2.data_ptr(),
+                                   out.data_ptr(), b, c, h, w, search_range,
+                                   torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "corr_forward")
+    LAUNCHES["corr"] += 1
+    return out
+
+
+def corr_backward(f1: torch.Tensor, f2: torch.Tensor, g: torch.Tensor,
+                  search_range: int = 4):
+    """Gradients (g1, g2) of the correlation with respect to ``f1`` and
+    ``f2`` given the output's gradient ``g``. One kernel launch for both
+    on CUDA tensors, the plain version on CPU tensors."""
+    if all(t.device.type == "cpu" for t in (f1, f2, g)):
+        return flow_ops.correlation_backward(f1, f2, g, search_range)
+    f1, f2, g = _kernel_inputs(f1, f2, search_range, g)
+    b, c, h, w = f1.shape
+    g1 = torch.empty_like(f1)
+    g2 = torch.empty_like(f2)
+    rc = _lib("corr_bwd").corr_backward(
+        f1.data_ptr(), f2.data_ptr(), g.data_ptr(), g1.data_ptr(),
+        g2.data_ptr(), b, c, h, w, search_range,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "corr_backward")
+    LAUNCHES["corr_backward"] += 1
+    return g1, g2
+
+
+class _Correlation(torch.autograd.Function):
+    """The correlation with the hand-written backward."""
+
+    @staticmethod
+    def forward(ctx, f1, f2, search_range):
+        ctx.search_range = search_range
+        ctx.save_for_backward(f1, f2)
+        return corr_forward(f1, f2, search_range)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        f1, f2 = ctx.saved_tensors
+        g1, g2 = corr_backward(f1, f2, g, ctx.search_range)
+        return g1, g2, None
 
 
 def correlation(f1: torch.Tensor, f2: torch.Tensor,
                 search_range: int = 4) -> torch.Tensor:
     """(B, C, H, W) f32 pair -> (B, (2r+1)^2, H, W) f32 mean-channel local
-    cost volume, dy-major offsets, zero outside the image."""
-    if f1.device.type == "cpu":
-        return flow_ops.correlation(f1, f2, search_range)
-    if f1.device.type != "cuda" or f2.device != f1.device:
-        raise ValueError("correlation inputs must be CUDA tensors on one "
-                         "device")
-    if f1.dtype != torch.float32 or f2.dtype != torch.float32:
-        raise TypeError("the correlation kernel takes f32 inputs")
-    if f1.dim() != 4 or f1.shape != f2.shape:
-        raise ValueError(f"shapes {tuple(f1.shape)} / {tuple(f2.shape)} "
-                         "must be equal (B, C, H, W)")
-    if not 1 <= search_range <= 4:
-        raise ValueError(f"search_range {search_range}: the kernel is "
-                         "built for 1..4")
-    f1 = f1.contiguous()
-    f2 = f2.contiguous()
-    b, c, h, w = f1.shape
-    if min(b, c, h, w) < 1 or h > MAX_GRID or b > MAX_GRID:
-        raise ValueError(f"shape {tuple(f1.shape)}: the kernel takes "
-                         f"non-empty inputs with B, H <= {MAX_GRID} (its "
-                         "grid is tiles x H x B)")
-    k = (2 * search_range + 1) ** 2
-    out = torch.empty((b, k, h, w), dtype=torch.float32, device=f1.device)
-    rc = _lib().corr_forward(f1.data_ptr(), f2.data_ptr(), out.data_ptr(),
-                             b, c, h, w, search_range,
-                             torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "corr_forward")
-    LAUNCHES["corr"] += 1
-    return out
+    cost volume, dy-major offsets, zero outside the image; differentiable
+    in both inputs (``corr_backward``)."""
+    return _Correlation.apply(f1, f2, search_range)

@@ -3,7 +3,12 @@
 The bundled ``weights/*.fp16.npz`` archives hold the Flax parameter tree
 flattened to "params/Module_i/.../kernel" keys with HWIO kernels. They
 are read with numpy alone; ``params_from_flax`` renames every key to the
-port's module path and transposes kernels to OIHW.
+port's module path and transposes kernels to OIHW, ``params_to_flax``
+goes back. ``save_flow_params`` writes what the port trains in the same
+keys: to a ``.npz`` path the fp16 archive both packages load, to any
+other path ``<path>/params.npz`` in f32, the port's stand-in for the
+reference package's Orbax checkpoint directory (which the port cannot
+read or write).
 
 A pipeline-state snapshot (pose, previous frame and disparity, tracker
 bank, frame index) is one ``.npz`` of plain arrays under "/"-joined
@@ -69,18 +74,90 @@ def params_from_flax(flat: dict) -> dict:
     return out
 
 
+def params_to_flax(state_dict: dict) -> dict:
+    """The exact inverse of ``params_from_flax``: a PWCNet ``state_dict``
+    as flat Flax keys ("params/Module_i/.../kernel"), kernels OIHW ->
+    HWIO, as f32 numpy arrays."""
+    n_ctx = len({k.split(".")[2] for k in state_dict
+                 if k.startswith("context.convs.")}) + (
+        1 if any(k.startswith("context.residual.") for k in state_dict)
+        else 0)
+    back = (
+        (re.compile(r"pyramid\.convs\.(\d+)\."),
+         lambda m: f"params/FeaturePyramid_0/ConvBlock_{m[1]}/Conv_0/"),
+        (re.compile(r"estimators\.(\d+)\.convs\.(\d+)\."),
+         lambda m: f"params/FlowEstimator_{m[1]}/ConvBlock_{m[2]}/Conv_0/"),
+        (re.compile(r"estimators\.(\d+)\.flow_head\."),
+         lambda m: f"params/FlowEstimator_{m[1]}/Conv_0/"),
+        (re.compile(r"estimators\.(\d+)\.up\."),
+         lambda m: f"params/FlowEstimator_{m[1]}/Conv_1/"),
+        (re.compile(r"context\.convs\.(\d+)\."),
+         lambda m: f"params/ContextNetwork_0/Conv_{m[1]}/"),
+        (re.compile(r"context\.residual\."),
+         lambda m: f"params/ContextNetwork_0/Conv_{n_ctx - 1}/"),
+    )
+    out = {}
+    for key, value in state_dict.items():
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        for pattern, name in back:
+            m = pattern.fullmatch(key.rsplit(".", 1)[0] + ".")
+            if m:
+                break
+        else:
+            raise KeyError(f"unknown PWCNet parameter {key}")
+        leaf = key.rsplit(".", 1)[1]
+        if leaf == "weight":
+            out[name(m) + "kernel"] = np.ascontiguousarray(
+                arr.transpose(2, 3, 1, 0))
+        elif leaf == "bias":
+            out[name(m) + "bias"] = arr
+        else:
+            raise KeyError(f"unknown PWCNet parameter {key}")
+    return out
+
+
+def save_flow_params(path: str, model) -> None:
+    """Save a PWCNet's weights in the Flax layout: a ``.npz`` path gets the
+    compressed fp16 flat-key archive of the JAX package's
+    ``save_flow_params_npz`` (loadable by both packages); any other path
+    is a directory that gets ``params.npz``, the same keys in f32."""
+    flat = params_to_flax(model.state_dict())
+    if path.endswith(".npz"):
+        parent = os.path.dirname(os.path.abspath(path))
+        os.makedirs(parent, exist_ok=True)
+        np.savez_compressed(path, **{k: v.astype(np.float16)
+                                     for k, v in flat.items()})
+        return
+    os.makedirs(path, exist_ok=True)
+    np.savez(os.path.join(path, "params.npz"), **flat)
+
+
+def _archive(path: str) -> str:
+    """The ``.npz`` that holds a checkpoint's weights: the path itself, or
+    ``params.npz`` in a directory written by ``save_flow_params``."""
+    if path.endswith(".npz"):
+        return path
+    inner = os.path.join(path, "params.npz")
+    if os.path.isdir(path) and os.path.exists(inner):
+        return inner
+    raise ValueError(
+        f"{path}: the port reads .npz weight archives and the directories "
+        "its save_flow_params writes; export a checkpoint directory of the "
+        "reference package to .npz first (its save_flow_params with a "
+        ".npz path)")
+
+
 def load_flow_checkpoint(path: str, base_config: FlowNetConfig | None = None,
                          device=None):
-    """Build the PWCNet a ``.npz`` checkpoint describes and load its
-    weights. Returns ``(model, config)``; the architecture is inferred
-    from the kernel shapes, the other fields come from ``base_config``.
-    Runs on ``cuda`` unless ``device`` says otherwise."""
+    """Build the PWCNet a checkpoint describes and load its weights: a
+    ``.npz`` archive or a directory written by ``save_flow_params``.
+    Returns ``(model, config)``; the architecture is inferred from the
+    kernel shapes, the other fields come from ``base_config``. Runs on
+    ``cuda`` unless ``device`` says otherwise."""
     from .. import resolve_device
 
     device = resolve_device(device)
-    if not path.endswith(".npz"):
-        raise ValueError(f"{path}: the port reads .npz weight archives only")
-    with np.load(path) as data:
+    with np.load(_archive(path)) as data:
         flat = {k: data[k] for k in data.files}
     cfg = infer_flow_config({k: v.shape for k, v in flat.items()},
                             base_config)
@@ -127,16 +204,13 @@ def flow_checkpoint_scale2_gated(path: str | None) -> bool:
 
 def resolve_flow_checkpoint(arg: str | None) -> str | None:
     """CLI convention: "auto" (or None) -> the bundled weights if present;
-    "none" -> random init; anything else -> an explicit ``.npz`` path."""
+    "none" -> random init; anything else -> an explicit ``.npz`` path or a
+    directory written by ``save_flow_params``."""
     if arg in (None, "auto"):
         return default_flow_checkpoint()
     if arg == "none":
         return None
-    if os.path.isdir(arg) or not arg.endswith(".npz"):
-        raise ValueError(
-            f"{arg}: the port reads .npz weight archives only; export a "
-            "checkpoint directory of the reference package to .npz first "
-            "(its save_flow_params with a .npz path)")
+    _archive(arg)  # raises for what the port cannot read
     return arg
 
 

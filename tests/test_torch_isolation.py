@@ -1,6 +1,6 @@
-"""The PyTorch port stands alone: it imports no JAX, Flax, Orbax or the
-JAX package, never falls back to the CPU on its own, and refuses the
-configuration values it does not implement yet."""
+"""The PyTorch port stands alone: it imports no JAX, Flax, Optax, Orbax or
+the JAX package, never falls back to the CPU on its own, and takes the
+configuration values the JAX package takes."""
 
 import os
 import re
@@ -14,7 +14,8 @@ from moving_object_detector_tpu_torch import config as tcfg
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "moving_object_detector_tpu_torch")
-FORBIDDEN = re.compile(r"\b(jax|flax|orbax)\b|moving_object_detector_tpu(?!_)")
+FORBIDDEN = re.compile(
+    r"\b(jax|flax|optax|orbax)\b|moving_object_detector_tpu(?!_)")
 MODULES = ("config", "types", "tunables", "_build", "ops.geometry",
            "ops.resize", "ops.sgm", "ops.sgm_cuda", "ops.sgm_v1_cuda",
            "ops.flow_ops", "ops.flow_corr_cuda", "ops.clustering",
@@ -28,7 +29,8 @@ MODULES = ("config", "types", "tunables", "_build", "ops.geometry",
            "io.scenes", "io.dashboard", "io.runner", "run", "parallel",
            "parallel.mesh", "parallel.streams", "parallel.spatial",
            "parallel.multihost", "alg", "alg.gaussian", "alg.classifiers",
-           "alg.boosting", "alg.icf")
+           "alg.boosting", "alg.icf", "train", "train.data_synth",
+           "train.flow_trainer", "train.train_flow")
 
 
 def test_import_leaves_jax_out():
@@ -38,7 +40,8 @@ def test_import_leaves_jax_out():
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module('moving_object_detector_tpu_torch.' + m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'orbax', 'moving_object_detector_tpu')]\n"
+        "('jax', 'flax', 'optax', 'orbax', "
+        "'moving_object_detector_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -72,7 +75,7 @@ def _sources():
     yield os.path.join(ROOT, "chip_smoke.py")
     # Inputs chip_smoke.py takes from the tests.
     for name in ("dp_cc_cases.py", "sceneflow_cases.py",
-                 "gauss_newton_cases.py"):
+                 "gauss_newton_cases.py", "corr_grad_cases.py"):
         yield os.path.join(ROOT, "tests", name)
 
 
@@ -151,8 +154,13 @@ def test_host_loop_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     lambda: tcfg.FlowNetConfig(warp_backend="two_pass"),
 ], ids=["warp_two_pass"])
 def test_config_raises_for_unported_values(make):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make()
+    """``warp_backend="two_pass"`` once raised naming ROADMAP.md; it is
+    ported now (``flow_ops.warp_two_pass``, held against the JAX form in
+    tests/test_torch_train.py), and the port refuses no configuration
+    value the JAX package takes. A value neither package knows raises."""
+    assert make().warp_backend == "two_pass"
+    with pytest.raises(ValueError, match="warp_backend"):
+        tcfg.FlowNetConfig(warp_backend="bogus")
 
 
 @pytest.mark.parametrize("make,field,value", [

@@ -26,6 +26,13 @@ from moving_object_detector_tpu_torch.ops import (
     sgm_cuda,
     sgm_v1_cuda,
 )
+from corr_grad_cases import (
+    ODD_CASES,
+    TOL_CORR_GRAD,
+    TRAIN_LEVELS,
+    grad_case,
+    grad_error,
+)
 from dp_cc_cases import (
     AGG_CASES,
     AGG_FULL,
@@ -459,6 +466,49 @@ def test_correlation_kernel_edge_cases_match_plain(cuda, b, c, h, w, r):
     assert v1.is_contiguous() and v1.data_ptr() % 16 == 4
     out = flow_corr_cuda.correlation(v1, v2, r)
     assert (out - flow_ops.correlation(v1, v2, r)).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("b,c,h,w,r", [lvl + (4,) for lvl in TRAIN_LEVELS]
+                         + ODD_CASES + [(2, 64, 125, 350, 3)])
+def test_correlation_backward_kernel_matches_plain(cuda, b, c, h, w, r):
+    """``corr_backward`` against ``flow_ops.correlation_backward`` at the
+    train step's four levels and the odd shapes: within TOL_CORR_GRAD of
+    the gradients' scale, and the same bits in two runs (gathers, no
+    atomics)."""
+    f1, f2, g = (torch.from_numpy(x).to(cuda)
+                 for x in grad_case(b, c, h, w, r))
+    out = flow_corr_cuda.corr_backward(f1, f2, g, r)
+    ref = flow_ops.correlation_backward(f1, f2, g, r)
+    assert grad_error([o.cpu() for o in out],
+                      [e.cpu() for e in ref]) <= TOL_CORR_GRAD
+    again = flow_corr_cuda.corr_backward(f1, f2, g, r)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+def test_correlation_function_trains_through_both_kernels(cuda):
+    """The autograd Function on CUDA tensors: one forward and one backward
+    launch, the gradients the plain backward's; a refusal for what the
+    kernels do not take."""
+    f1, f2, g = (torch.from_numpy(x).to(cuda)
+                 for x in grad_case(2, 7, 9, 11, 3))
+    a1 = f1.clone().requires_grad_()
+    a2 = f2.clone().requires_grad_()
+    before = dict(flow_corr_cuda.LAUNCHES)
+    out = flow_corr_cuda.correlation(a1, a2, 3)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert flow_corr_cuda.LAUNCHES["corr"] == before["corr"] + 1
+    assert (flow_corr_cuda.LAUNCHES["corr_backward"]
+            == before["corr_backward"] + 1)
+    ref = flow_ops.correlation_backward(f1, f2, g, 3)
+    assert grad_error([a1.grad.cpu(), a2.grad.cpu()],
+                      [e.cpu() for e in ref]) <= TOL_CORR_GRAD
+    with pytest.raises(TypeError):
+        flow_corr_cuda.corr_backward(f1.double(), f2.double(), g.double(), 3)
+    with pytest.raises(ValueError, match="search_range"):
+        flow_corr_cuda.corr_backward(f1, f2, g, 5)
+    with pytest.raises(ValueError, match="gradient shape"):
+        flow_corr_cuda.corr_backward(f1, f2, g[:, :9], 3)
 
 
 def _equal_with_nans(a, b):

@@ -10,6 +10,11 @@ asserts, the flow-net parameter placements and the streams x spatial
 composition; each rank saves its results to ``OUTDIR/rank<RANK>.npz``.
 ``multihost`` (2 gloo ranks): the smoke of ``tests/test_multihost.py``;
 prints ``worker <RANK> ok <total>``.
+``train`` (4 gloo ranks): ``make_sharded_train_step`` on a (2, 2) mesh for
+``TRAIN_STEPS`` steps of ``train_batch``, then one chunk of
+``make_chunked_train_step`` over the mesh; each rank saves its metrics,
+the full parameters after every step and its shards' placements to
+``OUTDIR/rank<RANK>.npz``.
 
 The flow net's weights come from ``OUTDIR/flow_params.npz`` (the JAX
 package's random init, flattened to "params/..." keys), written by the
@@ -78,6 +83,17 @@ def composition_scenes():
     lefts = np.stack([stereo_pair(h, w, COMP_SHIFT, 3 + i)[0]
                       for i in range(COMP_N)])
     return lefts, np.roll(lefts, -COMP_SHIFT, axis=2)
+
+
+TRAIN_STEPS, TRAIN_MESH = 2, (2, 2)  # the sharded train step's test
+# make_chunked_train_step's (height, width, batch, chunk): one chunk.
+TRAIN_CHUNK_ARGS = (32, 64, 4, 2)
+
+
+def train_batch(k: int, m):
+    """Step k's batch: ``synthetic_flow_batch`` of either package's
+    trainer module ``m`` (8 x 32 x 64, the JAX sharding test's)."""
+    return m.synthetic_flow_batch(np.random.default_rng(k), 8, 32, 64)
 
 
 def flow_config(m):
@@ -222,6 +238,40 @@ def run_spatial(outdir: str) -> dict:
     return out
 
 
+def run_train(outdir: str) -> dict:
+    import torch
+    from torch.distributed.tensor import Shard
+
+    from moving_object_detector_tpu_torch.parallel.mesh import create_mesh
+    from moving_object_detector_tpu_torch.train import flow_trainer
+
+    mesh = create_mesh(4, TRAIN_MESH[1])
+    model = _flow_model(outdir)
+    state, tx = flow_trainer.create_train_state(model)
+    step, sharded = flow_trainer.make_sharded_train_step(model, tx, mesh,
+                                                         state)
+    out = {"sharded": np.array(sorted(
+        n for n, p in sharded.params.items() if Shard(0) in p.placements))}
+    for k in range(TRAIN_STEPS):
+        sharded, metrics = step(sharded, train_batch(k, flow_trainer))
+        for name in ("loss", "epe", "grad_norm"):
+            out[f"{name}{k}"] = np.array(float(metrics[name]))
+        for name, p in flow_trainer.full_params(sharded).items():
+            out[f"step{k}/{name}"] = p.detach().numpy()
+    out["local_numel"] = np.array(sum(p.to_local().numel()
+                                      for p in sharded.params.values()))
+    out["step"] = np.array(sharded.step)
+    # A chunk of the chunked trainer over the same mesh.
+    model = _flow_model(outdir)
+    state, tx = flow_trainer.create_train_state(model)
+    chunk_fn, state = flow_trainer.make_chunked_train_step(
+        model, tx, state, *TRAIN_CHUNK_ARGS, mesh=mesh)
+    state, metrics = chunk_fn(state)
+    out["chunk_loss"] = np.array(float(metrics["loss"]))
+    torch.distributed.barrier()
+    return out
+
+
 def run_multihost(rank: int) -> float:
     """One camera stream per process over a (2, 1) mesh: host-local
     batches become one global batch, a reduction crosses the process
@@ -295,9 +345,9 @@ def main(argv) -> None:
     torch.set_num_threads(1)
     multihost.initialize(init, world, rank, device="cpu")
     try:
-        if task == "spatial":
-            np.savez(os.path.join(outdir, f"rank{rank}.npz"),
-                     **run_spatial(outdir))
+        if task in ("spatial", "train"):
+            run = run_spatial if task == "spatial" else run_train
+            np.savez(os.path.join(outdir, f"rank{rank}.npz"), **run(outdir))
             print(f"worker {rank} ok", flush=True)
         else:
             print(f"worker {rank} ok {run_multihost(rank)}", flush=True)
