@@ -14,9 +14,11 @@
    and disparity bitwise, the correlation within 1e-5 for r = 1..4 and
    B = 1, 2 with two runs bit-identical, the correlation's backward
    (``corr_backward``) at the four levels of a train step (192 x 448,
-   batch 8) and the odd shapes of ``tests/corr_grad_cases.py`` within 1e-5
-   of the gradients' scale with two runs bit-identical and each training
-   level timed against its bound, the windowed gather equal with
+   batch 8), the odd shapes and the plan's switch points of
+   ``tests/corr_grad_cases.py`` within 1e-5 of the gradients' scale, on
+   inputs 16-byte aligned and 4 bytes off, with two runs bit-identical,
+   each training level timed against its bound beside its launch plan,
+   its registers a thread read by ``cuobjdump``, the windowed gather equal with
    NaN positions equal, the connected components exactly on six kinds of
    input (three runs each), the cluster stats exactly (min / max by
    value; a NaN member coordinate gives NaN), the fused scene-flow
@@ -76,7 +78,12 @@
    hypotheses (the same success, the motion within 1e-4), then forces
    the LK fallback on 4 frames (``lk_fallback_frac=1.01``: six
    Gauss-Newton launches a frame, the motion within 1e-4 of the same
-   frames with the plain solve).
+   frames with the plain solve). Then the clusterer's other branches:
+   the full frame with no crop window configured (detections and label
+   images equal to the crop window's), three moving patches spread wider
+   than two windows (the full-frame branch under the serving crop) and
+   a patch that stops (the quiet early-out after busy frames), both
+   identical to the plain gather, CC and stats.
 6. Profiles three serving frames with torch.profiler: device busy time
    per frame, kernel launches per frame, ego-motion's host ms, launches
    and device ms a frame alone, the kernels with the most device time.
@@ -91,8 +98,10 @@
    temporary ``.npz``: one JSON line per frame, the moving patch among the
    detections, the export files present; then 6 frames with
    ``--save-state`` and 6 more with ``--resume-state``, which must equal
-   the unbroken 12-frame run. Runs 6 frames with ``association="gnn"``
-   and compares the tracks with the greedy run's.
+   the unbroken 12-frame run; ``--crop`` (to 352 x 1216) and ``--source
+   kitti`` (PNG pairs in the KITTI raw layout), each equal to the npz run
+   of the same pixels. Runs 6 frames with ``association="gnn"`` and
+   compares the tracks with the greedy run's.
 9. Quality: the held-out-texture sequence of
    ``tests/test_real_sequence.py`` (two objects, a translating and yawing
    camera, 7 frames) through ``eval.evaluate_planar_sequence`` with the
@@ -108,7 +117,19 @@
    on). Prints one JSON line per run, each metric beside the JAX
    package's recorded quality value, and the serving run's oracle budget:
    the median velocity error with the flow, the disparity, both or
-   neither replaced by the renderer's truth.
+   neither replaced by the renderer's truth. Then the scene matrix of
+   ``scripts/validate_scene_matrix.py``: the six ``validation_scenes``
+   (lateral, multi_object, occlusion, approach, rotating_cam, sloped_bg)
+   at 192 x 448, fx 300, scale 1, ``dynamic_disparity_rate`` 3.0, every
+   default-path kernel on every frame, each scene held to that script's
+   gates (``tests/scene_gates.py``: no phantom, no ego failure, D1 <
+   0.05, each object hit in 0.8 of its scoreable frames (0.5 in
+   occlusion), 2 of the last 3 approach frames hit, median velocity
+   error < 0.6 m/s, median centre error < 0.3 m; in approach and
+   rotating_cam, where the JAX package fails the velocity and the phantom
+   gate, the port must fail the same gates and no other), one JSON line a scene
+   with the JAX package's recorded velocity error beside the three scenes
+   it names; the same at 384 x 896 scale 2, logged and not gated.
 10. Dashboard: ``PipelineRunner`` with ``io.dashboard.LiveDashboard`` over
    ``run.py``'s interactive scene at 376 x 1242 (8 frames, not paced):
    the page, ``/status.json`` and every product PNG served; a retune
@@ -116,7 +137,9 @@
    5 and shows in ``/tunables.json``; a ``/sim`` command moves the object
    in the rendered frames; the dashboard's update runs with synchronizing
    CUDA calls made errors. Each harvest, profiled alone, must launch no
-   kernel with or without the dashboard (it adds copies only); prints
+   kernel with or without the dashboard (it adds copies only); with the
+   object moving from the first frame, the runner's detections equal the
+   hand-driven loop's and the camera product draws them; prints
    the launches a frame of whole runs with and without it and the
    runner's ``harvest`` and ``dashboard`` stage ms in turns. Then
    ``run.main`` with ``--source interactive --serve-port 0`` in process:
@@ -214,6 +237,10 @@ STRIPS = ((0, 300, 24), (300, 640, 14), (640, 950, 30), (950, W, 18))
 PATCH_Y, PATCH_H, PATCH_W, PATCH_D = 140, 120, 200, 44
 TOL_FLOW_MEAN = 0.05  # px, kernel vs plain correlation through the bf16 net
 PATCH2_X, PATCH2_D = 990, 36  # the second patch of the two-window frames
+PATCH3_X, PATCH3_D = 40, 40  # the third, left of the first: no two windows
+CLI_CROP = (352, 1216)  # --crop's --height / --width
+TOL_FULL_FRAME = 1e-4  # m, m/s: the stats' sums over a window or the frame
+TOL_CLI = 1e-4  # m, m/s: two CLI runs of the same pixels
 CROP_H, CROP_W = 192, 512  # ClustererConfig.cc_crop_h / cc_crop_w
 ODD_H, ODD_W = 125, 350
 SGM_HALO, FLOW_HALO = 32, 64  # bench.py's --spatial halos
@@ -292,12 +319,15 @@ def bound_ms(nbytes: float, ops: float):
                                  "operations")
 
 
-def make_frames(n_frames=N_FRAMES, second_patch=False, seed=None):
+def make_frames(n_frames=N_FRAMES, second_patch=False, seed=None,
+                third_patch=False, stop_at=None):
     """(left, right, x) f32 pairs: strips of known disparity, a moving patch
-    at column x; with ``second_patch`` another one near the right border.
-    With a ``seed`` (one camera stream of several), the background is
-    rolled, the patch cut from another place and started at another
-    column, all drawn from the seed."""
+    at column x; with ``second_patch`` another one near the right border,
+    with ``third_patch`` one more near the left border. With a ``seed``
+    (one camera stream of several), the background is rolled, the patch
+    cut from another place and started at another column, all drawn from
+    the seed. With ``stop_at``, every patch stands still from that frame
+    on."""
     tex = np.load(os.path.join(ROOT, "tests", "fixtures",
                                "real_textures.npz"))
     bg = np.concatenate([tex["china"][:H], tex["flower"][:H]], axis=1)
@@ -316,13 +346,17 @@ def make_frames(n_frames=N_FRAMES, second_patch=False, seed=None):
     frames = []
     patch2 = tex["hopper"][240:240 + PATCH_H,
                            300:300 + PATCH_W].astype(np.float32) / 255.0
+    patch3 = tex["hopper"][0:PATCH_H, 0:PATCH_W].astype(np.float32) / 255.0
     for k in range(n_frames):
-        x = start + SHIFT * k
+        moved = SHIFT * (k if stop_at is None else min(k, stop_at))
+        x = start + moved
         left = bg.copy()
         right = right_bg.copy()
         pasted = [(patch, x, PATCH_D)]
         if second_patch:
-            pasted.append((patch2, PATCH2_X + SHIFT * k, PATCH2_D))
+            pasted.append((patch2, PATCH2_X + moved, PATCH2_D))
+        if third_patch:
+            pasted.append((patch3, PATCH3_X + moved, PATCH3_D))
         for img, px, pd in pasted:
             left[PATCH_Y:PATCH_Y + PATCH_H, px:px + PATCH_W] = img
             right[PATCH_Y:PATCH_Y + PATCH_H,
@@ -798,11 +832,14 @@ def corr_grad_bytes_ops(b, c, h, w):
 
 def check_corr_backward_kernel(dev, report):
     """``corr_backward`` against the plain ``correlation_backward`` at the
-    train step's four levels and the odd shapes of
-    ``tests/corr_grad_cases.py``: within TOL_CORR_GRAD of the gradients'
-    scale, two runs bit-identical; each training level timed."""
+    train step's four levels, the odd shapes and the plan's switch points
+    of ``tests/corr_grad_cases.py``: within TOL_CORR_GRAD of the
+    gradients' scale, two runs bit-identical, and inputs 4 bytes into
+    their storage (the 4-byte copies) too; each training level timed
+    beside its launch plan, and the kernels' registers a thread."""
     from corr_grad_cases import (
         ODD_CASES,
+        PLAN_CASES,
         TOL_CORR_GRAD,
         TRAIN_LEVELS,
         grad_case,
@@ -813,12 +850,17 @@ def check_corr_backward_kernel(dev, report):
     err = 0.0
     ms = dev_ms = plain_ms = t_bytes = t_ops = 0.0
     levels = []
-    for b, c, h, w, r in [lvl + (4,) for lvl in TRAIN_LEVELS] + ODD_CASES:
+    cases = [lvl + (4,) for lvl in TRAIN_LEVELS] + ODD_CASES + PLAN_CASES
+    for b, c, h, w, r in cases:
         f1, f2, g = (torch.from_numpy(x).to(dev)
                      for x in grad_case(b, c, h, w, r))
         out = flow_corr_cuda.corr_backward(f1, f2, g, r)
         ref = flow_ops.correlation_backward(f1, f2, g, r)
         e = grad_error([o.cpu() for o in out], [x.cpu() for x in ref])
+        v1, v2 = (torch.cat([x.new_zeros(1), x.flatten()])[1:].view_as(x)
+                  for x in (f1, f2))
+        e = max(e, grad_error([o.cpu() for o in flow_corr_cuda.corr_backward(
+            v1, v2, g, r)], [x.cpu() for x in ref]))
         if not e <= TOL_CORR_GRAD:
             raise AssertionError(
                 f"corr_backward differs at {b}x{c}x{h}x{w} r={r}: {e}")
@@ -833,12 +875,13 @@ def check_corr_backward_kernel(dev, report):
                   lambda: flow_ops.correlation_backward(f1, f2, g, 4))
         nbytes, ops = corr_grad_bytes_ops(b, c, h, w)
         lvl_bound, lvl_by = bound_ms(nbytes, ops)
+        plan = flow_corr_cuda.backward_plan(b, c, h, w, 4, w % 4 == 0)
         levels.append(dict(shape=[b, c, h, w], ms=t["ms"],
                            device_ms=t["device_ms"], plain_ms=t["plain_ms"],
-                           bound_ms=lvl_bound, bound_by=lvl_by))
+                           bound_ms=lvl_bound, bound_by=lvl_by, plan=plan))
         log(f"corr_backward at {b}x{c}x{h}x{w} r=4: {t['ms']:.4f} ms, on the "
             f"device {t['device_ms']:.4f} ms, bound {lvl_bound:.4f} "
-            f"({lvl_by}), plain {t['plain_ms']:.4f}")
+            f"({lvl_by}), plain {t['plain_ms']:.4f}; plan {plan}")
         ms += t["ms"]
         dev_ms += t["device_ms"]
         plain_ms += t["plain_ms"]
@@ -846,8 +889,11 @@ def check_corr_backward_kernel(dev, report):
         t_ops += ops
     log(f"corr_backward within {err:.3g} of plain (tolerance {TOL_CORR_GRAD}"
         f" of the gradients' scale), two runs bit-identical, at the "
-        f"{len(TRAIN_LEVELS)} training levels and {len(ODD_CASES)} odd "
-        f"shapes; per level: " + json.dumps(levels))
+        f"{len(TRAIN_LEVELS)} training levels, {len(ODD_CASES)} odd shapes "
+        f"and {len(PLAN_CASES)} plan cases, aligned and 4 bytes off; per "
+        f"level: " + json.dumps(levels))
+    log("corr_backward registers a thread (cuobjdump): "
+        + kernel_registers("corr_bwd"))
     bms, by = bound_ms(t_bytes, t_ops)
     report["corr_backward"] = dict(
         name="corr_backward", route="cuda",
@@ -856,6 +902,28 @@ def check_corr_backward_kernel(dev, report):
                  "correlation_pallas :88)",
         max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
         bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def kernel_registers(name: str) -> str:
+    """Each kernel of ``csrc/<name>.cu``'s built library with its registers
+    a thread and its spill bytes, as ``cuobjdump -res-usage`` prints them;
+    "not measured" where the toolkit has no ``cuobjdump``."""
+    import re
+
+    from moving_object_detector_tpu_torch import _build
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return "not measured (no cuobjdump)"
+    lib = _build._target(name)[1]
+    text = subprocess.run([tool, "-res-usage", lib], capture_output=True,
+                          text=True, timeout=60).stdout
+    found = re.findall(r"Function (\S+):\s*REG:(\d+) STACK:(\d+) "
+                       r"SHARED:\d+ LOCAL:(\d+)", text)
+    return json.dumps({fn: dict(registers=int(reg), stack=int(stack),
+                                local=int(local))
+                       for fn, reg, stack, local in found})
 
 
 def equal_with_nans(a, b) -> bool:
@@ -1855,6 +1923,8 @@ def run_checks_and_paths(dev, report) -> None:
         f"default path on {n_fused} frames (velocities within 1e-4); median "
         f"{statistics.median(fused_ms[1:]):.2f} ms/frame")
 
+    run_clusterer_branches(model, config, stereo, frames, outs, plain_scene,
+                           dev)
     check_serving_gauss_newton(model, config, stereo, frames, dev)
     run_lk_fallback(model, config, stereo, frames[:4], dev)
     profile_frames(model, config, stereo, frames[:3], dev, med,
@@ -1865,14 +1935,82 @@ def run_checks_and_paths(dev, report) -> None:
 
     run_v1_runner_path(model, config, stereo, frames, outs, med, dev, report)
     run_cli(frames)
+    run_cli_sources(frames)
     run_gnn(model, config, stereo, frames[:6], outs[:6], dev)
     run_quality(model, dev)
+    run_scene_matrix(model, dev)
     run_dashboard(model, config, stereo, dev)
     run_streams(model, config, stereo, dev)
     run_spatial(model, config, stereo, dev)
     run_spatial_nccl(model, config, stereo, dev)
     run_alg(dev)
     run_training(model, config, stereo, frames, dev, report)
+
+
+def run_clusterer_branches(model, config, stereo, frames, outs, plain_scene,
+                           dev) -> None:
+    """The clusterer's full-frame branch and its quiet early-out at the
+    serving point. With no crop window configured (``cc_crop_h`` /
+    ``cc_crop_w`` 0) every busy frame takes the full frame: the same
+    detections and label images as the crop window's run (the JAX
+    package's crop is exact). Three moving patches spread wider than two
+    windows take it under the serving crop too (one CC launch a frame,
+    labels more than a window apart), and the quiet early-out follows
+    busy frames once the patch stands still (no CC launch, no detection);
+    both held to the plain gather, CC and stats on the same frames."""
+    nocrop = config.replace(clusterer=dataclasses.replace(
+        config.clusterer, cc_crop_h=0, cc_crop_w=0))
+    reset_counts()
+    full_outs, _ = run_frames(model, nocrop, stereo, frames, dev)
+    counts = read_counts()
+    compare_detections(outs, full_outs, "full frame (no crop) vs the crop "
+                       "window", atol=TOL_FULL_FRAME)
+    log(f"full-frame clusterer (cc_crop_h = cc_crop_w = 0), {len(frames)} "
+        f"frames: detections and label images equal to the crop window's "
+        f"(centres within {TOL_FULL_FRAME}); cc {counts['cc']}, "
+        f"cluster_stats {counts['cluster_stats']} launches")
+
+    wide = make_frames(4, second_patch=True, third_patch=True)
+    cc_wide = []
+    wide_outs, _ = run_frames(model, config, stereo, wide, dev,
+                              per_frame={"cc": cc_wide})
+    spans = []
+    for o in wide_outs[1:]:
+        cols = torch.nonzero((o.label_image >= 0).any(dim=0)).flatten()
+        spans.append(int(cols.max() - cols.min()) + 1 if len(cols) else 0)
+    dets = [int(o.detections.valid.sum()) for o in wide_outs]
+    if cc_wide[1:] != [1] * (len(wide) - 1) or min(spans) <= CROP_W:
+        raise AssertionError(f"three patches: cc launches {cc_wide}, "
+                             f"labelled column spans {spans}: not the "
+                             "full-frame branch")
+    if min(dets[1:]) < 1:
+        raise AssertionError(f"three patches: detections per frame {dets}")
+    compare_detections(wide_outs, run_frames(model, plain_scene, stereo,
+                                             wide, dev)[0],
+                       "three patches kernel vs plain", atol=0.0)
+    log(f"three patches, no two crop windows: the full-frame branch (cc "
+        f"launches {cc_wide}, labelled columns spanning {spans} > "
+        f"{CROP_W}), detections per frame {dets}, identical to the plain "
+        "gather/CC/stats")
+
+    still = make_frames(8, stop_at=3)
+    cc_still = []
+    still_outs, _ = run_frames(model, config, stereo, still, dev,
+                               per_frame={"cc": cc_still})
+    dets = [int(o.detections.valid.sum()) for o in still_outs]
+    quiet = [k for k in range(4, len(still))
+             if cc_still[k] == 0 and dets[k] == 0
+             and not bool((still_outs[k].label_image >= 0).any())]
+    if min(cc_still[1:4]) < 1 or not quiet:
+        raise AssertionError(f"patch stopping at frame 3: cc launches "
+                             f"{cc_still}, detections {dets}: no quiet "
+                             "frame after the busy ones")
+    compare_detections(still_outs, run_frames(model, plain_scene, stereo,
+                                              still, dev)[0],
+                       "quiet frames kernel vs plain", atol=0.0)
+    log(f"patch standing still from frame 3: cc launches {cc_still}, "
+        f"detections {dets}; quiet early-out on frames {quiet}; identical "
+        "to the plain gather/CC/stats")
 
 
 def check_serving_gauss_newton(model, config, stereo, frames, dev) -> None:
@@ -2127,14 +2265,7 @@ def run_cli(frames) -> None:
         if [r["frame"] for r in whole] != list(range(n)):
             raise AssertionError(f"CLI printed frames "
                                  f"{[r['frame'] for r in whole]}")
-        # The patch: disparity PATCH_D, centre column x + PATCH_W / 2.
-        z_true = FX * BASELINE / PATCH_D
-        hits = 0
-        for r, (_, _, x) in zip(whole, frames):
-            x_true = (x + PATCH_W / 2 - W / 2) * z_true / FX
-            hits += any(abs(d["center"][2] - z_true) < 1.0
-                        and abs(d["center"][0] - x_true) < 1.0
-                        for d in r["detections"])
+        hits = patch_hits(whole, frames)
         if hits < n // 2:
             raise AssertionError(f"CLI: the moving patch was detected on "
                                  f"{hits} of {n} frames")
@@ -2156,27 +2287,114 @@ def run_cli(frames) -> None:
                                  snap])
         second = run_main(base + ["--frames", str(n - n // 2),
                                   "--resume-state", snap])
-        worst = 0.0
-        for a, b in zip(whole, first + second):
-            same = (a["frame"] == b["frame"] and a["valid"] == b["valid"]
-                    and a["ego"] == b["ego"] and a["time"] == b["time"])
-            for key in ("detections", "tracks"):
-                same = same and ([o["id"] for o in a[key]]
-                                 == [o["id"] for o in b[key]])
-                if same:
-                    for oa, ob in zip(a[key], b[key]):
-                        for f in ("center", "velocity"):
-                            worst = max(worst, max(
-                                abs(p - q) for p, q in zip(oa[f], ob[f])))
-            if not same:
-                raise AssertionError(f"save + resume differs from the "
-                                     f"unbroken run on frame {a['frame']}")
-        if len(first + second) != n or not worst <= 1e-4:
-            raise AssertionError(f"save + resume: {len(first + second)} "
-                                 f"frames, max |diff| {worst}")
+        worst = compare_cli_runs(whole, first + second,
+                                 "save + resume against the unbroken run")
         log(f"CLI save after {n // 2} frames + resume: ids, flags and times "
             f"equal to the unbroken {n}-frame run, centres and velocities "
-            f"max |diff| {worst:.3g} (tolerance 1e-4)")
+            f"max |diff| {worst:.3g} (tolerance {TOL_CLI})")
+
+
+def compare_cli_runs(runs_a, runs_b, what: str) -> float:
+    """The JSON lines of two CLI runs: the same frames, flags, times and
+    detection and track ids, centres and velocities within TOL_CLI; the
+    largest difference."""
+    worst = 0.0
+    if len(runs_a) != len(runs_b):
+        raise AssertionError(f"{what}: {len(runs_a)} and {len(runs_b)} "
+                             "frames")
+    for a, b in zip(runs_a, runs_b):
+        same = (a["frame"] == b["frame"] and a["valid"] == b["valid"]
+                and a["ego"] == b["ego"] and a["time"] == b["time"])
+        for key in ("detections", "tracks"):
+            same = same and ([o["id"] for o in a[key]]
+                             == [o["id"] for o in b[key]])
+            if same:
+                for oa, ob in zip(a[key], b[key]):
+                    for f in ("center", "velocity"):
+                        worst = max(worst, max(
+                            abs(p - q) for p, q in zip(oa[f], ob[f])))
+        if not same:
+            raise AssertionError(f"{what}: frame {a['frame']} differs")
+    if not worst <= TOL_CLI:
+        raise AssertionError(f"{what}: max |diff| {worst}")
+    return worst
+
+
+def patch_hits(runs, frames) -> int:
+    """Frames of a CLI run whose detections hold the moving patch (its
+    disparity PATCH_D, its centre column x + PATCH_W / 2; a crop about the
+    centre keeps the camera-frame position)."""
+    z_true = FX * BASELINE / PATCH_D
+    hits = 0
+    for r, (_, _, x) in zip(runs, frames):
+        x_true = (x + PATCH_W / 2 - W / 2) * z_true / FX
+        hits += any(abs(d["center"][2] - z_true) < 1.0
+                    and abs(d["center"][0] - x_true) < 1.0
+                    for d in r["detections"])
+    return hits
+
+
+def run_cli_sources(frames) -> None:
+    """``--crop`` and ``--source kitti`` in process, each against the npz
+    run of the same pixels: ``--crop`` of the full frames against frames
+    cropped here about the centre, and a KITTI-layout directory of PNG
+    pairs (``image_02/data``, ``image_03/data``) against its images read
+    back into an npz. Both find the moving patch."""
+    from moving_object_detector_tpu_torch.io import readers, viz
+    from moving_object_detector_tpu_torch.ops.image import center_crop_offsets
+
+    n = 6
+    frames = frames[:n]
+    ch, cw = CLI_CROP
+    y0, x0 = center_crop_offsets(H, W, ch, cw)
+    times = np.arange(n) / 10.0  # the KITTI reader's fixed rate, --fps 10
+    with tempfile.TemporaryDirectory() as tmp:
+        def npz(name, lefts, rights):
+            path = os.path.join(tmp, name)
+            np.savez(path, left=np.stack(lefts), right=np.stack(rights),
+                     time=times)
+            return path
+
+        def args(h, w):
+            return ["--height", str(h), "--width", str(w), "--fx", str(FX),
+                    "--baseline", str(BASELINE), "--flow-input-scale", "2",
+                    "--sgm-input-scale", "2", "--frames", str(n)]
+
+        full = npz("full.npz", [f[0] for f in frames], [f[1] for f in frames])
+        cut = npz("cut.npz", [f[0][y0:y0 + ch, x0:x0 + cw] for f in frames],
+                  [f[1][y0:y0 + ch, x0:x0 + cw] for f in frames])
+        crop = run_main(["--source", "npz", "--npz", full, "--crop"]
+                        + args(ch, cw))
+        ref = run_main(["--source", "npz", "--npz", cut] + args(ch, cw))
+        worst = compare_cli_runs(crop, ref, "--crop against frames cropped "
+                                 "before the CLI")
+        crop_hits = patch_hits(crop, frames)
+
+        dirs = [os.path.join(tmp, "kitti", cam, "data")
+                for cam in ("image_02", "image_03")]
+        for d in dirs:
+            os.makedirs(d)
+        for k, (left, right, _) in enumerate(frames):
+            for d, img in zip(dirs, (left, right)):
+                viz.write_png(os.path.join(d, f"{k:010d}.png"), img)
+        back = [[readers.read_image(os.path.join(d, f"{k:010d}.png"))
+                 for k in range(n)] for d in dirs]
+        kitti = run_main(["--source", "kitti", "--left-dir", dirs[0],
+                          "--right-dir", dirs[1], "--fps", "10"]
+                         + args(H, W))
+        ref = run_main(["--source", "npz", "--npz", npz("png.npz", *back)]
+                       + args(H, W))
+        worst = max(worst, compare_cli_runs(kitti, ref, "--source kitti "
+                                            "against its PNGs as an npz"))
+        kitti_hits = patch_hits(kitti, frames)
+    if min(crop_hits, kitti_hits) < n // 2:
+        raise AssertionError(f"the moving patch was detected on {crop_hits} "
+                             f"(--crop) and {kitti_hits} (--source kitti) "
+                             f"of {n} frames")
+    log(f"CLI --crop to {ch}x{cw} and --source kitti (PNG pairs in the "
+        f"KITTI raw layout), {n} frames each: equal to the npz runs of the "
+        f"same pixels (max |diff| {worst:.3g}, tolerance {TOL_CLI}); the "
+        f"patch detected on {crop_hits} and {kitti_hits} frames")
 
 
 def run_gnn(model, config, stereo, frames, greedy_outs, dev) -> None:
@@ -2313,24 +2531,30 @@ def counts_per_step(record: list):
         pipeline.detect_step = real
 
 
-def check_default_path_per_frame(per_frame, what: str) -> None:
+def check_default_path_per_frame(per_frame, what: str,
+                                 every_frame_busy: bool = True) -> None:
     """Every default-path kernel on every frame: the census pair, the
     three SGM v2 kernels, the correlation's levels and the gather at their
     counts, the Gauss-Newton solve three times (six with the LK
     fallback), CC and stats at least once on every frame that has a
     previous one (the first frame has no velocities, so nothing to
-    cluster); no v1-only kernel and no fused construct."""
+    cluster; without ``every_frame_busy``, on some frame: a frame with no
+    dynamic pixel takes the quiet early-out); no v1-only kernel and no
+    fused construct."""
     for k, c in enumerate(per_frame):
         want = dict(DEFAULT_PATH_KERNELS,
                     gauss_newton=6 if c["lk_track"] else 3)
         bad = {n: c[n] for n, v in want.items() if c[n] != v}
         bad.update({n: c[n] for n in V1_ONLY_KERNELS + ("sceneflow_fused",)
                     if c[n]})
-        if k:
+        if k and every_frame_busy:
             bad.update({n: c[n] for n in ("cc", "cluster_stats")
                         if c[n] < 1})
         if bad:
             raise AssertionError(f"{what}: frame {k} launched {bad}")
+    for n in ("cc", "cluster_stats"):
+        if not sum(c[n] for c in per_frame):
+            raise AssertionError(f"{what}: {n} never launched")
 
 
 def run_quality(model, dev) -> None:
@@ -2398,6 +2622,91 @@ def run_quality(model, dev) -> None:
         raise AssertionError("quality gates failed: " + "; ".join(failed))
     log("quality: every gate of tests/test_real_sequence.py passed at "
         + " and ".join(r[0] for r in QUALITY_RUNS))
+
+
+# The scene matrix of scripts/validate_scene_matrix.py: (run, height,
+# width, fx, flow and SGM input scale, gated). The JAX record is at scale
+# 1; scale 2, the serving setting, is logged beside it.
+SCENE_RUNS = (("192x448 scale 1", 192, 448, 300.0, 1, True),
+              ("384x896 scale 2", 384, 896, 600.0, 2, False))
+
+
+def run_scene_matrix(model, dev) -> None:
+    """The six ``validation_scenes`` through ``eval.evaluate_planar_sequence``
+    with pwc_v7 and the default backends at ``dynamic_disparity_rate`` 3.0,
+    every default-path kernel launched on every frame, each scene held to
+    ``scripts/validate_scene_matrix.py``'s gates (``tests/scene_gates.py``)
+    at scale 1, or where the JAX package itself fails some of them
+    (``scene_gates.JAX_FAILS``: approach, rotating_cam) to failing those
+    and no other; scale 2 logged. One JSON line a scene."""
+    from moving_object_detector_tpu_torch.eval import (
+        evaluate_planar_sequence,
+    )
+    from moving_object_detector_tpu_torch.io.scenes import validation_scenes
+    from scene_gates import (
+        DISPARITY_RATE,
+        JAX_FAILS,
+        JAX_RECORD_VEL,
+        SCENES,
+        hit_fractions,
+        matrix_verdict,
+        scene_gates,
+    )
+
+    failed = []
+    name_limit = card()
+    for run, h, w, fx, scale, gated in SCENE_RUNS:
+        scenes = validation_scenes(h=h, w=w, fx=fx)
+        if tuple(scenes) != SCENES:
+            raise AssertionError(f"validation_scenes: {tuple(scenes)}")
+        for name, seq in scenes.items():
+            for k in range(seq.n_frames):
+                seq.frame(k)  # render outside the timed run
+            per_frame = []
+            reset_counts()
+            t0 = time.perf_counter()
+            with counts_per_step(per_frame):
+                m = evaluate_planar_sequence(
+                    seq, model, flow_input_scale=scale,
+                    sgm_input_scale=scale,
+                    dynamic_disparity_rate=DISPARITY_RATE, details=True,
+                    device=dev)
+            wall = time.perf_counter() - t0
+            if len(per_frame) != seq.n_frames:
+                raise AssertionError(f"scene {name} {run}: "
+                                     f"{len(per_frame)} steps")
+            check_default_path_per_frame(per_frame, f"scene {name} {run}",
+                                         every_frame_busy=False)
+            gates = scene_gates(name, m, len(seq.objects))
+            print(json.dumps({
+                "scene": name, "run": run, "gated": gated,
+                "card": name_limit, "d1": m["d1"],
+                "flow_epe": m["flow_epe"],
+                "ego_rot_err_deg": m["ego_rot_err_deg"],
+                "hits": hit_fractions(m, len(seq.objects)),
+                "phantoms": m["phantoms"],
+                "ego_failures": m["ego_failures"],
+                "vel_err_median": m["vel_err_median"],
+                "center_err_median": m["center_err_median"],
+                "jax_record_vel_err_median": (JAX_RECORD_VEL.get(name)
+                                              if scale == 1 else None),
+                "jax_fails": sorted(JAX_FAILS.get(name, ())),
+                "verdict": (matrix_verdict(name, gates) or "pass")
+                if gated else "not gated",
+                "gates": {g: {"value": v, "limit": lim, "pass": ok}
+                          for g, v, lim, ok in gates},
+                "wall_s": round(wall, 3)}), flush=True)
+            if gated:
+                failed += [f"{name} {run}: {v}"
+                           for v in matrix_verdict(name, gates)]
+    if failed:
+        raise AssertionError("scene matrix gates failed: "
+                             + "; ".join(failed))
+    log("scene matrix at 192x448 scale 1 (vel < 0.6 m/s, disparity rate "
+        f"{DISPARITY_RATE}): every gate of scripts/validate_scene_matrix.py "
+        "passed, and where the JAX package fails some "
+        f"({ {k: sorted(v) for k, v in JAX_FAILS.items()} }) the port fails "
+        "those and no other")
 
 
 def interactive_scene(h, w, fx, n_frames):
@@ -2527,6 +2836,7 @@ def run_dashboard(model, config, stereo, dev) -> None:
         f"{ {p: len(b) for p, b in pngs.items()} } bytes, dynamic_speed per "
         f"frame {speeds}, object column per frame "
         f"{[round(c, 1) for c in cols]}")
+    check_dashboard_overlays(model, config, stereo, dev, n)
 
     # Launches with and without the dashboard (every product wanted), on
     # the same frames: profiled whole runs, then each harvest profiled
@@ -2630,6 +2940,55 @@ def run_dashboard(model, config, stereo, dev) -> None:
         f"{frames} (a live ring drops stale frames), detections "
         f"{[len(r['detections']) for r in lines]}, dashboard on port "
         f"{port[0]} closed on return")
+
+
+def check_dashboard_overlays(model, config, stereo, dev, n) -> None:
+    """The interactive scene with its object moving at 2 m/s from the
+    first frame through ``PipelineRunner`` with the dashboard (the camera
+    product wanted throughout): its detections per frame equal the
+    hand-driven loop's on the same frames, and ``_overlay_objects`` draws
+    them into the camera product."""
+    from moving_object_detector_tpu_torch.io import dashboard as dashmod
+    from moving_object_detector_tpu_torch.io.runner import PipelineRunner
+
+    seq = interactive_scene(H, W, FX, n)
+    seq.command(obj_velocity=[[2.0, 0.0, 0.0]])
+    frames = list(seq)
+    hand, _ = run_frames(model, config, stereo, frames, dev)
+    drawn = []  # (color, objects valid, pixels changed) a call
+    real = dashmod._overlay_objects
+
+    def counted(img, objects, cam, color, **kwargs):
+        before = img.copy()
+        real(img, objects, cam, color, **kwargs)
+        drawn.append((color, int(np.asarray(objects.valid).sum()),
+                      int((img != before).any(axis=-1).sum())))
+
+    dash = dashmod.LiveDashboard(0, host="127.0.0.1", demand_window=1e9)
+    dashmod._overlay_objects = counted
+    try:
+        try:
+            http(f"http://127.0.0.1:{dash.port}", "/view/camera.png")
+        except OSError:
+            pass  # 404 before the first frame: the product is wanted
+        results = PipelineRunner(config, stereo, model, dashboard=dash,
+                                 device=dev).run(frames)
+        png = http(f"http://127.0.0.1:{dash.port}", "/view/camera.png")
+    finally:
+        dashmod._overlay_objects = real
+        dash.close()
+    runner_dets = [r.n_detections for r in results]
+    hand_dets = [int(o.detections.valid.sum()) for o in hand]
+    boxes = sum(px for color, _, px in drawn if color == (1.0, 0.2, 0.2))
+    if runner_dets != hand_dets or not sum(hand_dets) or not boxes \
+            or not png.startswith(b"\x89PNG"):
+        raise AssertionError(f"dashboard overlays: runner detections "
+                             f"{runner_dets}, hand-driven {hand_dets}, "
+                             f"overlay calls {drawn}")
+    log(f"dashboard overlays, the object moving at 2 m/s: detections per "
+        f"frame {runner_dets} (the hand-driven loop's), {boxes} camera "
+        f"pixels drawn for detections over {len(drawn)} overlay calls "
+        f"(color, objects, pixels) {drawn}")
 
 
 def card() -> str:

@@ -26,6 +26,78 @@ LAUNCHES = {"corr": 0, "corr_backward": 0}
 MAX_GRID = 65535  # blocks along a grid's second and third dimension
 _typed = set()
 
+# ``csrc/corr_bwd.cu``'s tiling constants (the tests hold them equal).
+BWD_PIXELS = 4  # kP: pixels a thread
+BWD_CHANNELS = 2  # kCh: channels a thread a round
+BWD_HALO = 4  # kHalo
+BWD_STAGES = 2  # kStages
+BWD_MAX_TX = 32  # kMaxTX
+BWD_ROWS = 2  # kRows
+BWD_MAX_TY = 4  # kMaxTY
+BWD_SHORT_H = 8  # kShortH
+BWD_MAX_SLOTS = 16  # kMaxSlots
+BWD_MAX_THREADS = 512  # kMaxThreads
+BWD_MIN_BLOCKS = 132  # kMinBlocks
+BWD_TARGET_BLOCKS = 264  # kTargetBlocks
+BWD_SMEM_TARGET = 114688  # kSmemTarget, bytes
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _window_floats(wrows: int, rs: int, slots: int) -> int:
+    want = 1 if slots >= 8 else 8 // slots % 8
+    words = wrows * rs // 4
+    while words % 8 != want:
+        words += 1
+    return 4 * words
+
+
+def _bwd_smem(tx: int, ty: int, slots: int, chs: int, kk: int) -> int:
+    return 4 * (ty * kk * tx + BWD_STAGES * slots * BWD_CHANNELS * chs)
+
+
+def backward_plan(b: int, c: int, h: int, w: int, r: int,
+                  vec: bool) -> dict:
+    """The launch ``corr_backward`` makes for a (b, c, h, w) call at
+    search range r (``vec``: 16-byte copies), as ``plan`` in
+    ``csrc/corr_bwd.cu`` picks it: the tile (tx, ty), the channel slots,
+    the grid's tiles, row groups and channel chunks, the rounds a block,
+    the floats of a channel's window, and the block's threads, shared
+    bytes and the grid's blocks."""
+    kk = (2 * r + 1) ** 2
+    tiles = _cdiv(w, BWD_MAX_TX)
+    tx = _cdiv(_cdiv(w, tiles), BWD_PIXELS) * BWD_PIXELS
+    groups = _cdiv(h, BWD_MAX_TY if h < BWD_SHORT_H else BWD_ROWS)
+    ty = _cdiv(h, groups)
+    npg = tx // BWD_PIXELS
+    rs = tx + 2 * BWD_HALO
+    wrows = ty + 2 * r
+    per_chunk = 2 * tiles * groups * b
+    slots = BWD_MAX_SLOTS
+    while slots > 1 and (
+            slots * npg * ty > BWD_MAX_THREADS
+            or _bwd_smem(tx, ty, slots, _window_floats(wrows, rs, slots),
+                         kk) > BWD_SMEM_TARGET):
+        slots //= 2
+    while slots > 1 and (per_chunk * _cdiv(c, BWD_CHANNELS * slots)
+                         < BWD_MIN_BLOCKS):
+        slots //= 2
+    need = max(tx, rs // (4 if vec else 1))
+    while slots * npg * ty < need:
+        slots *= 2
+    total = _cdiv(c, BWD_CHANNELS * slots)
+    chunks = min(_cdiv(BWD_TARGET_BLOCKS, per_chunk), total)
+    rounds = _cdiv(total, chunks)
+    chunks = _cdiv(total, rounds)
+    chs = _window_floats(wrows, rs, slots)
+    return dict(tx=tx, ty=ty, slots=slots, tiles=tiles, groups=groups,
+                chunks=chunks, rounds=rounds, chs=chs,
+                threads=slots * npg * ty,
+                smem=_bwd_smem(tx, ty, slots, chs, kk),
+                blocks=per_chunk * chunks)
+
 
 def _lib(name: str):
     lib = _build.load(name)

@@ -3,13 +3,19 @@
 ``torch.autograd`` through the plain correlation and against the JAX
 package's VJPs of both its forms, the XLA ``flow_ops.correlation`` and
 ``correlation_pallas`` in interpret mode; ``gradcheck`` in f64; the
-autograd Function's CPU routing and its refusals; and the warp's
-gradient at its clip bounds, where JAX's tie rule applies.
+autograd Function's CPU routing and its refusals; the warp's gradient at
+its clip bounds, where JAX's tie rule applies; and the kernel's launch
+plan (``flow_corr_cuda.backward_plan``, the mirror of ``plan`` in
+``csrc/corr_bwd.cu``): its constants are the source's, and at the four
+training levels it fills the card and fits its shared memory.
 
 Tolerance of the comparisons in f32: 1e-5 relative to the gradients'
 scale (``corr_grad_cases.grad_error``): the sums of (2r+1)^2 products per
 element are taken in other orders by XLA and by PyTorch.
 """
+
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -23,7 +29,13 @@ from moving_object_detector_tpu.ops.flow_corr_pallas import (
 )
 from moving_object_detector_tpu_torch.ops import flow_corr_cuda, flow_ops
 
-from corr_grad_cases import ODD_CASES, grad_case, grad_error
+from corr_grad_cases import (
+    ODD_CASES,
+    PLAN_CASES,
+    TRAIN_LEVELS,
+    grad_case,
+    grad_error,
+)
 
 TOL = 1e-5
 
@@ -45,7 +57,7 @@ def _jax_vjp(fn, f1, f2, g):
     return [_nchw(x) for x in grads]
 
 
-@pytest.mark.parametrize("b,c,h,w,r", ODD_CASES)
+@pytest.mark.parametrize("b,c,h,w,r", ODD_CASES + PLAN_CASES)
 def test_plain_backward_matches_autograd_and_the_jax_vjp(b, c, h, w, r):
     f1, f2, g = grad_case(b, c, h, w, r)
     out = flow_ops.correlation_backward(*map(torch.from_numpy, (f1, f2, g)),
@@ -139,3 +151,73 @@ def test_warp_gradient_at_the_clip_bounds_equals_jax(bound):
     np.testing.assert_allclose(tfl.grad.numpy(), _nchw(jfl), atol=1e-6)
     if bound == "zero_flow":  # a half-gradient on the bound, as in JAX
         assert np.abs(_nchw(jfl)[0, 0, :, 0]).max() > 0
+
+
+CSRC = os.path.join(os.path.dirname(__file__), os.pardir,
+                    "moving_object_detector_tpu_torch", "csrc")
+SMEM_PER_BLOCK = 232448  # bytes a block can have on an H100 (227 KB)
+SMEM_PER_SM = 233472  # bytes of shared memory an SM can hold (228 KB)
+SMS = 132
+
+
+def test_backward_plan_constants_are_the_kernels():
+    with open(os.path.join(CSRC, "corr_bwd.cu")) as f:
+        text = f.read()
+    for name, value in (
+            ("kP", flow_corr_cuda.BWD_PIXELS),
+            ("kCh", flow_corr_cuda.BWD_CHANNELS),
+            ("kHalo", flow_corr_cuda.BWD_HALO),
+            ("kStages", flow_corr_cuda.BWD_STAGES),
+            ("kMaxTX", flow_corr_cuda.BWD_MAX_TX),
+            ("kRows", flow_corr_cuda.BWD_ROWS),
+            ("kMaxTY", flow_corr_cuda.BWD_MAX_TY),
+            ("kShortH", flow_corr_cuda.BWD_SHORT_H),
+            ("kMaxSlots", flow_corr_cuda.BWD_MAX_SLOTS),
+            ("kMaxThreads", flow_corr_cuda.BWD_MAX_THREADS),
+            ("kMinBlocks", flow_corr_cuda.BWD_MIN_BLOCKS),
+            ("kTargetBlocks", flow_corr_cuda.BWD_TARGET_BLOCKS),
+            ("kSmemTarget", flow_corr_cuda.BWD_SMEM_TARGET)):
+        found = re.search(rf"constexpr int {name} = (\d+);", text)
+        assert found and int(found.group(1)) == value, name
+
+
+@pytest.mark.parametrize("level", TRAIN_LEVELS)
+def test_backward_plan_fills_the_card_at_the_training_levels(level):
+    """At least 100 blocks, all of them on the card at once (two or more
+    blocks an SM by shared memory), every thread a job, every pixel, row
+    and channel covered once, and at most four rounds a block."""
+    b, c, h, w = level
+    p = flow_corr_cuda.backward_plan(b, c, h, w, 4, w % 4 == 0)
+    assert p["blocks"] >= 100
+    assert 2 * (p["smem"] + 1024) <= SMEM_PER_SM  # 1 KB kept a block
+    assert p["threads"] <= flow_corr_cuda.BWD_MAX_THREADS
+    assert p["threads"] >= max(p["tx"], (p["tx"] + 8) // (4 if w % 4 == 0
+                                                          else 1))
+    assert p["tiles"] * p["tx"] >= w > (p["tiles"] - 1) * p["tx"]
+    assert p["groups"] * p["ty"] >= h > (p["groups"] - 1) * p["ty"]
+    cc = flow_corr_cuda.BWD_CHANNELS * p["slots"]
+    assert p["chunks"] * p["rounds"] * cc >= c > (
+        (p["chunks"] - 1) * p["rounds"] * cc)
+    per_sm = min(SMEM_PER_SM // (p["smem"] + 1024), 2048 // p["threads"])
+    assert per_sm >= 2 and p["blocks"] <= SMS * per_sm
+    assert p["rounds"] <= 4
+
+
+@pytest.mark.parametrize("b,c,h,w,r", ODD_CASES + PLAN_CASES
+                         + [(2, 64, 125, 350, 3)])
+@pytest.mark.parametrize("vec", [True, False])
+def test_backward_plan_launches_what_the_card_takes(b, c, h, w, r, vec):
+    """Any shape: a block of 1 to 1024 threads, enough of them for the
+    copies, in the 227 KB a block can have; a channel's window padded so
+    that the slots of a quarter warp read 8 banks apart."""
+    p = flow_corr_cuda.backward_plan(b, c, h, w, r, vec)
+    assert 1 <= p["threads"] <= 1024
+    assert p["threads"] >= max(p["tx"], (p["tx"] + 8) // (4 if vec else 1))
+    assert p["smem"] <= SMEM_PER_BLOCK
+    words = p["chs"] // 4
+    assert p["chs"] % 4 == 0 and words * 4 >= (p["ty"] + 2 * r) * (
+        p["tx"] + 8)
+    if p["slots"] >= 8:
+        assert words % 2 == 1
+    else:
+        assert words % 8 == 8 // p["slots"] % 8

@@ -75,7 +75,8 @@ def _sources():
     yield os.path.join(ROOT, "chip_smoke.py")
     # Inputs chip_smoke.py takes from the tests.
     for name in ("dp_cc_cases.py", "sceneflow_cases.py",
-                 "gauss_newton_cases.py", "corr_grad_cases.py"):
+                 "gauss_newton_cases.py", "corr_grad_cases.py",
+                 "scene_gates.py"):
         yield os.path.join(ROOT, "tests", name)
 
 

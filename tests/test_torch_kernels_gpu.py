@@ -28,6 +28,7 @@ from moving_object_detector_tpu_torch.ops import (
 )
 from corr_grad_cases import (
     ODD_CASES,
+    PLAN_CASES,
     TOL_CORR_GRAD,
     TRAIN_LEVELS,
     grad_case,
@@ -469,12 +470,13 @@ def test_correlation_kernel_edge_cases_match_plain(cuda, b, c, h, w, r):
 
 
 @pytest.mark.parametrize("b,c,h,w,r", [lvl + (4,) for lvl in TRAIN_LEVELS]
-                         + ODD_CASES + [(2, 64, 125, 350, 3)])
+                         + ODD_CASES + PLAN_CASES + [(2, 64, 125, 350, 3)])
 def test_correlation_backward_kernel_matches_plain(cuda, b, c, h, w, r):
     """``corr_backward`` against ``flow_ops.correlation_backward`` at the
-    train step's four levels and the odd shapes: within TOL_CORR_GRAD of
-    the gradients' scale, and the same bits in two runs (gathers, no
-    atomics)."""
+    train step's four levels, the odd shapes and the plan's switch points:
+    within TOL_CORR_GRAD of the gradients' scale, and the same bits in two
+    runs (gathers, no atomics). Inputs that start 4 bytes into their
+    storage take the 4-byte copies whatever the width."""
     f1, f2, g = (torch.from_numpy(x).to(cuda)
                  for x in grad_case(b, c, h, w, r))
     out = flow_corr_cuda.corr_backward(f1, f2, g, r)
@@ -483,6 +485,12 @@ def test_correlation_backward_kernel_matches_plain(cuda, b, c, h, w, r):
                       [e.cpu() for e in ref]) <= TOL_CORR_GRAD
     again = flow_corr_cuda.corr_backward(f1, f2, g, r)
     assert all(torch.equal(a, b) for a, b in zip(out, again))
+    v1, v2 = (torch.cat([x.new_zeros(1), x.flatten()])[1:].view_as(x)
+              for x in (f1, f2))
+    assert v1.data_ptr() % 16 == 4
+    out = flow_corr_cuda.corr_backward(v1, v2, g, r)
+    assert grad_error([o.cpu() for o in out],
+                      [e.cpu() for e in ref]) <= TOL_CORR_GRAD
 
 
 def test_correlation_function_trains_through_both_kernels(cuda):
