@@ -4,7 +4,7 @@
 
 1. Builds the CUDA kernels from ``moving_object_detector_tpu_torch/csrc``
    (one nvcc per source, in parallel) and prints the build seconds.
-2. Holds each of the fourteen kernels against its plain PyTorch version on
+2. Holds each of the fifteen kernels against its plain PyTorch version on
    the card, at the serving shapes and at an odd shape: the census pair,
    SGM deltas and disparity bitwise (v2, also at the spatial path's
    252 x 1242 stripe; the WTA for every combination of ``subpixel``,
@@ -28,8 +28,16 @@
    NaN and +-inf flow, an unaligned input), ego-motion's Gauss-Newton
    solve on correspondences of a known motion at the RANSAC's two shapes
    (4 x 512 points within 1e-5, 64 x 3 within 1e-4 on the sound triples
-   of ``tests/gauss_newton_cases.py``), timed at every block
-   size. Prints each
+   of ``tests/gauss_newton_cases.py``), timed at every block size, and
+   the whole RANSAC in one launch (``ransac_gn``) on the RANSAC cases of
+   that file (the serving shape with 1, 4 and 16 candidates, an odd 37 x
+   50) at every block size: the same success and inlier count, the motion
+   within 1e-4, no valid feature and too few inliers failing to the
+   identity, two runs bit-identical; its device time a call beside the
+   same RANSAC as three Gauss-Newton launches and the torch scoring
+   between them, and the registers of its kernels; the kernels'
+   branch-free IEEE division and square root bit for bit the card's own
+   on 2^26 inputs. Prints each
    kernel's time and its plain version's time (CUDA events, median after
    warm-up), the correlation's per pyramid level and at its smallest
    case (the launch floor). Both SGM DPs are also held at the edge shapes
@@ -61,8 +69,9 @@
    Checks shapes, finiteness, the known strip disparities and the patch's
    flow, and that every kernel of this path launched on it: a frame, the
    census kernel once (both views), each SGM v2 kernel once, the
-   correlation four times, the Gauss-Newton kernel three times (six on a
-   frame that takes the LK fallback), the plain census never. Prints
+   correlation four times, the RANSAC kernel once (twice on a frame that
+   takes the LK fallback), the Gauss-Newton kernel and the plain census
+   never. Prints
    ms/frame, pairs/s and per-stage ms.
 4. Runs the same frames with the gather, CC and stats in their plain
    forms and requires identical detections, label images and overflow;
@@ -74,11 +83,11 @@
    twice a frame), and 6 frames with ``gather_backend="fused"``, which must
    launch the fused kernel once a frame, the gather never, and give the
    default path's detections. Repeats every RANSAC of the serving frames
-   on the Gauss-Newton kernel and on the plain solve with one draw of
+   on the RANSAC kernel and on its plain version with one draw of
    hypotheses (the same success, the motion within 1e-4), then forces
-   the LK fallback on 4 frames (``lk_fallback_frac=1.01``: six
-   Gauss-Newton launches a frame, the motion within 1e-4 of the same
-   frames with the plain solve). Then the clusterer's other branches:
+   the LK fallback on 4 frames (``lk_fallback_frac=1.01``: two RANSAC
+   launches a frame, the motion within 1e-4 of the same frames with the
+   plain RANSAC). Then the clusterer's other branches:
    the full frame with no crop window configured (detections and label
    images equal to the crop window's), three moving patches spread wider
    than two windows (the full-frame branch under the serving crop) and
@@ -255,6 +264,11 @@ OPS_PER_FUSED_PIXEL = 100  # about 60 f32 operations and 10 divisions
 # exponential and the 4 x 4 product, about 400.
 OPS_PER_GN_POINT = 224
 OPS_PER_GN_SOLVE = 400
+# The RANSAC, per point and hypothesis or candidate: transform 18,
+# projection 6, residual and its norm 6, the MSAC term and the inlier test
+# 4; per pair of hypotheses ranked, 4.
+OPS_PER_GN_RESIDUAL = 34
+OPS_PER_RANK = 4
 TOL_GN_MOTION = 1e-4  # ego-motion on the GN kernel against the plain solve
 
 
@@ -283,12 +297,17 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 20) -> float:
-    """Device time of one call of ``fn``: the kernels' own time summed by
-    torch.profiler over ``reps`` calls, without the host's launch path
-    that ``median_ms`` includes. A profiler run that comes back without
-    a kernel record is repeated, at most twice; after that the time is
-    reported as not measured (NaN), since it is an extra beside ``ms``."""
+def device_profile(fn, reps: int = 20):
+    """Device ms and kernel launches of one call of ``fn``: the kernels'
+    own time from torch.profiler over ``reps`` calls, without the host's
+    launch path that ``median_ms`` includes. The profiler may drop a
+    record: each kernel name's mean time is counted ceil(records / reps)
+    times a call, and a shortfall is logged. A profiler run that comes
+    back without a kernel record is repeated, at most twice; after that
+    the time is reported as not measured (NaN), since it is an extra
+    beside ``ms``."""
+    import math
+
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(3):
@@ -298,12 +317,27 @@ def device_ms(fn, reps: int = 20) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(e.device_time for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
-        if total_us > 0:
-            return total_us / 1e3 / reps
-        log(f"device_ms: no kernel record in profiler run {attempt}")
-    return float("nan")
+        by_name = collections.defaultdict(list)
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name].append(e.device_time / 1e3)
+        if by_name:
+            ms = launches = 0
+            for name, times in by_name.items():
+                per_call = math.ceil(len(times) / reps)
+                if len(times) != per_call * reps:
+                    log(f"device_profile: {per_call * reps - len(times)} of "
+                        f"{per_call * reps} records of {name[:60]} dropped")
+                ms += statistics.fmean(times) * per_call
+                launches += per_call
+            return ms, launches
+        log(f"device_profile: no kernel record in profiler run {attempt}")
+    return float("nan"), 0
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device ms of one call of ``fn`` (``device_profile``)."""
+    return device_profile(fn, reps)[0]
 
 
 def timed(kernel, plain) -> dict:
@@ -1452,11 +1486,142 @@ def check_gauss_newton_kernel(dev, report):
         name="gauss_newton", route="cuda",
         source="moving_object_detector_tpu_torch/csrc/gauss_newton.cu",
         replaces="egomotion.py:318 _solve_pose (an XLA fori_loop, "
-                 "no Pallas kernel); 3 calls a frame",
+                 "no Pallas kernel); timed as the 3 calls a RANSAC made "
+                 "before ransac_gn took them over; off the serving path",
         max_abs_err=err,
         **timed(lambda: frame(gn.solve_pose),
                 lambda: frame(gn.solve_pose_plain)),
         bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def ransac_bytes_ops(n, h, s, k, cfg):
+    """Bytes one RANSAC must move (each input once, the outputs once) and
+    the operations it does: the hypotheses' solves, their scores, the
+    ranking, each candidate's two refinements and three passes of
+    residuals (its inliers, the tight mask, the final count and score)."""
+    nbytes = 12 * n + 8 * n + n + 8 * h * s + 16 + 64 + 1 + 4
+    ops = (cfg.gn_iters_hypothesis * (OPS_PER_GN_POINT * h * s
+                                      + OPS_PER_GN_SOLVE * h)
+           + OPS_PER_GN_RESIDUAL * h * n + OPS_PER_RANK * h * h
+           + k * (2 * cfg.gn_iters_refine * (OPS_PER_GN_POINT * n
+                                             + OPS_PER_GN_SOLVE)
+                  + 3 * OPS_PER_GN_RESIDUAL * n))
+    return nbytes, ops
+
+
+def ransac_case_args(dev, name, **kw):
+    """(args, cfg) of a RANSAC case of tests/gauss_newton_cases.py."""
+    from gauss_newton_cases import CAM, RANSAC_CASES, ransac_case
+    from moving_object_detector_tpu_torch.config import EgoMotionConfig
+
+    pts, uv, valid, idx = ransac_case(name)
+    _, h, k = RANSAC_CASES[name]
+    args = [torch.from_numpy(x).to(dev) for x in (pts, uv, valid)]
+    args += [torch.tensor(CAM, device=dev), torch.from_numpy(idx).to(dev)]
+    return args, EgoMotionConfig(ransac_hypotheses=h, refine_candidates=k,
+                                 **kw)
+
+
+def check_ransac_kernel(dev, report):
+    """The RANSAC kernel (``ransac_gn``) against its plain version on the
+    cases of tests/gauss_newton_cases.py (the serving shape, 512 features
+    with outliers and invalid ones, 64 hypotheses, 1, 4 and 16 candidates,
+    and an odd 37 x 50), at every block size: one launch and no
+    ``gauss_newton`` launch a call, the same success and inlier count, the
+    motion within TOL_GN_MOTION; no valid feature and too few inliers give
+    the identity; two runs bit-identical. First holds the kernels'
+    branch-free division and square root against the card's own on 2^26
+    inputs. Times the serving case at every block size, beside the same
+    RANSAC as three ``gauss_newton`` launches and the torch scoring
+    between them, and logs the kernels' registers."""
+    from gauss_newton_cases import RANSAC_CASES
+    from moving_object_detector_tpu_torch.ops import gauss_newton_cuda as gn
+
+    counts = gn.ieee_ops_check(1 << 26, seed=1, device=dev)
+    if counts["div_mismatches"] or counts["sqrt_mismatches"]:
+        raise AssertionError(f"FastOps differ from the card's IEEE "
+                             f"division or square root: {counts}")
+    log(f"FastOps equal the card's IEEE division and square root bit for "
+        f"bit: {json.dumps(counts)}")
+    err = 0.0
+    for name in RANSAC_CASES:
+        args, cfg = ransac_case_args(dev, name)
+        ref = gn.ransac_solve_plain(*args, cfg)
+        for threads in gn.RANSAC_THREADS:
+            before = dict(gn.LAUNCHES)
+            out = gn.ransac_solve(*args, cfg, threads=threads)
+            sync(dev)
+            if gn.LAUNCHES != dict(before, ransac_gn=before["ransac_gn"] + 1):
+                raise AssertionError(f"ransac_gn {name}: launches "
+                                     f"{before} -> {gn.LAUNCHES}")
+            diff = float((out[0] - ref[0]).abs().max())
+            if (bool(out[1]) != bool(ref[1]) or not bool(out[1])
+                    or int(out[2]) != int(ref[2])
+                    or not diff <= TOL_GN_MOTION):
+                raise AssertionError(
+                    f"ransac_gn differs from plain on {name} at {threads} "
+                    f"threads: success {bool(out[1])} / {bool(ref[1])}, "
+                    f"count {int(out[2])} / {int(ref[2])}, motion {diff}")
+            err = max(err, diff)
+        log(f"ransac_gn matches plain on {name} {RANSAC_CASES[name]} at "
+            f"{gn.RANSAC_THREADS} threads: count {int(ref[2])}, motion max "
+            f"|diff| {diff:.3g} (tolerance {TOL_GN_MOTION})")
+    for what in ("no valid feature", "too few inliers"):
+        if what == "no valid feature":
+            args, cfg = ransac_case_args(dev, "odd")
+            args[2] = torch.zeros_like(args[2])
+        else:
+            args, cfg = ransac_case_args(dev, "serving", min_inliers=10_000)
+        out = gn.ransac_solve(*args, cfg)
+        ref = gn.ransac_solve_plain(*args, cfg)
+        if not (torch.equal(out[0], torch.eye(4, device=dev))
+                and not bool(out[1]) and int(out[2]) == int(ref[2])):
+            raise AssertionError(f"ransac_gn with {what}: {out}, plain {ref}")
+    args, cfg = ransac_case_args(dev, "serving")
+    first = gn.ransac_solve(*args, cfg)
+    if not all(torch.equal(a, b) for a, b in
+               zip(first, gn.ransac_solve(*args, cfg))):
+        raise AssertionError("ransac_gn: two runs differ")
+    log("ransac_gn: the identity and no success with no valid feature and "
+        "with too few inliers; two runs bit-identical")
+    for threads in gn.RANSAC_THREADS:
+        ms = device_ms(lambda: gn.ransac_solve(*args, cfg, threads=threads))
+        log(f"ransac_gn serving call at {threads} threads a block: "
+            f"{ms:.4f} device ms")
+
+    def three_calls():  # the same RANSAC on the gauss_newton kernel
+        real = gn.solve_pose_plain
+        gn.solve_pose_plain = gn.solve_pose
+        try:
+            return gn.ransac_solve_plain(*args, cfg)
+        finally:
+            gn.solve_pose_plain = real
+
+    for what, fn in (("one ransac_gn launch", lambda: gn.ransac_solve(
+            *args, cfg)), ("three gauss_newton launches and the torch "
+                           "scoring between them", three_calls)):
+        ms, launches = device_profile(fn)
+        log(f"the serving RANSAC as {what}: {ms:.4f} device ms in "
+            f"{launches} kernel launches a call")
+    log("registers of csrc/gauss_newton.cu's kernels: "
+        + kernel_registers("gauss_newton"))
+    (n, _), (h, s) = args[0].shape, args[4].shape
+    k = gn.ransac_candidates(cfg, h)
+    bms, by = bound_ms(*ransac_bytes_ops(n, h, s, k, cfg))
+    report["ransac_gn"] = dict(
+        name="ransac_gn", route="cuda",
+        source="moving_object_detector_tpu_torch/csrc/gauss_newton.cu",
+        replaces="egomotion.py:441 _ransac_gn_solve (XLA, no Pallas "
+                 "kernel): hypotheses, MSAC scores, stable top-k, two-pass "
+                 "refinement, argmin in one launch a RANSAC; latency-bound "
+                 "(a chain of 5 + 8 + 8 dependent Gauss-Newton iterations, "
+                 "each a reduction and a serial 6 x 6 solve)",
+        max_abs_err=err,
+        **timed(lambda: gn.ransac_solve(*args, cfg),
+                lambda: gn.ransac_solve_plain(*args, cfg)),
+        bound_ms=bms, bound_by=by, library_ms=None)
+    log(f"ransac_gn serving shape (N, H, K) = {(n, h, k)}: bound "
+        f"{bms:.6f} ms ({by})")
 
 
 def run_frames(model, config, stereo, frames, dev, stage_ms=None,
@@ -1569,15 +1734,17 @@ V2_SGM_KERNELS = ("sgm_vertical", "sgm_horizontal", "sgm_wta")
 
 
 def check_gauss_newton_per_frame(per_frame, what: str) -> None:
-    """Three Gauss-Newton launches on a frame that keeps the dense flow
-    (the hypotheses, two refinement passes), six on a frame that takes the
-    LK fallback (the RANSAC runs again on the LK tracks)."""
-    for k, (n_gn, n_lk) in enumerate(zip(per_frame["gauss_newton"],
-                                         per_frame["lk_track"])):
-        if n_gn != (6 if n_lk else 3):
+    """One RANSAC kernel launch on a frame that keeps the dense flow, two
+    on a frame that takes the LK fallback (the RANSAC runs again on the LK
+    tracks), and no Gauss-Newton launch: ``ransac_gn`` runs its solves."""
+    for k, (n_ransac, n_gn, n_lk) in enumerate(zip(
+            per_frame["ransac_gn"], per_frame["gauss_newton"],
+            per_frame["lk_track"])):
+        if n_ransac != (2 if n_lk else 1) or n_gn:
             raise AssertionError(
-                f"{what}: frame {k} launched gauss_newton {n_gn} times with "
-                f"{n_lk} LK fallbacks, expected {6 if n_lk else 3}")
+                f"{what}: frame {k} launched ransac_gn {n_ransac} and "
+                f"gauss_newton {n_gn} times with {n_lk} LK fallbacks, "
+                f"expected {2 if n_lk else 1} and 0")
     if all(per_frame["lk_track"]):
         raise AssertionError(f"{what}: no frame kept the dense flow")
 
@@ -1630,16 +1797,17 @@ def count_lk_calls() -> None:
 
 @contextlib.contextmanager
 def plain_gauss_newton():
-    """Ego-motion's Gauss-Newton solves in their plain form, on the card
-    too: the yardstick the kernel's path is held against."""
+    """Ego-motion's RANSAC and Gauss-Newton solves in their plain forms, on
+    the card too: the yardstick the kernels' path is held against."""
     from moving_object_detector_tpu_torch.ops import gauss_newton_cuda as gn
 
-    real = gn.solve_pose
+    real, real_ransac = gn.solve_pose, gn.ransac_solve
     gn.solve_pose = lambda *a, **k: gn.solve_pose_plain(*a, **k)
+    gn.ransac_solve = lambda *a, **k: gn.ransac_solve_plain(*a, **k)
     try:
         yield
     finally:
-        gn.solve_pose = real
+        gn.solve_pose, gn.ransac_solve = real, real_ransac
 
 
 def matches_outside_window(outs, sf_config) -> int:
@@ -1752,6 +1920,7 @@ def run_checks_and_paths(dev, report) -> None:
     check_stats_kernel(dev, report, cc_serving)
     check_fused_kernel(dev, report)
     check_gauss_newton_kernel(dev, report)
+    check_ransac_kernel(dev, report)
     for r in report.values():
         log(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3g} "
             f"ms {r['ms']:.4f} (on the device {r['device_ms']:.4f}) "
@@ -1770,7 +1939,8 @@ def run_checks_and_paths(dev, report) -> None:
     sgm.census_transform = lambda *a, **k: (plain_census_calls.append(1)
                                             or plain_census(*a, **k))
     reset_counts()
-    main_per_frame = {"cc": [], "gauss_newton": [], "lk_track": []}
+    main_per_frame = {"cc": [], "ransac_gn": [], "gauss_newton": [],
+                      "lk_track": []}
     try:
         outs, step_ms = run_frames(model, config, stereo, frames, dev,
                                    per_frame=main_per_frame)
@@ -1784,6 +1954,10 @@ def run_checks_and_paths(dev, report) -> None:
         raise AssertionError("the default path launched the fused construct")
     if launches.pop("corr_backward") != 0:
         raise AssertionError("serving launched the correlation backward")
+    if launches.pop("gauss_newton") != 0:
+        raise AssertionError("the default path launched gauss_newton: "
+                             "ransac_gn runs the RANSAC's solves")
+    report["gauss_newton"]["launches"] = 0  # off the serving path
     for name in V1_ONLY_KERNELS:
         if launches.pop(name) != 0:
             raise AssertionError(f"the default path launched {name}")
@@ -2014,11 +2188,12 @@ def run_clusterer_branches(model, config, stereo, frames, outs, plain_scene,
 
 
 def check_serving_gauss_newton(model, config, stereo, frames, dev) -> None:
-    """The Gauss-Newton kernel on the serving frames' correspondences:
-    every ``_ransac_gn_solve`` call of a run over the frames is recorded
-    and repeated with one draw of hypotheses, on the kernel and on the
-    plain solve: the same success, the motion within TOL_GN_MOTION; and
-    the hypotheses alone within 1e-4 on the sound triples."""
+    """The RANSAC and Gauss-Newton kernels on the serving frames'
+    correspondences: every ``_ransac_gn_solve`` call of a run over the
+    frames is recorded and repeated with one draw of hypotheses, on the
+    RANSAC kernel and on its plain version: the same success, the motion
+    within TOL_GN_MOTION; and the hypotheses alone on the Gauss-Newton
+    kernel within 1e-4 of the plain solve on the sound triples."""
     from gauss_newton_cases import sound
     from moving_object_detector_tpu_torch import egomotion
     from moving_object_detector_tpu_torch.ops import gauss_newton_cuda as gn
@@ -2065,47 +2240,49 @@ def check_serving_gauss_newton(model, config, stereo, frames, dev) -> None:
             diff = (hk - hp).abs().amax((1, 2)).cpu().numpy()
             worst_hyp = max(worst_hyp, float(diff[keep].max()))
     if not (worst <= TOL_GN_MOTION and worst_hyp <= 1e-4 and n_sound):
-        raise AssertionError(f"serving RANSAC on the GN kernel: motion "
+        raise AssertionError(f"serving RANSAC on the kernels: motion "
                              f"{worst}, {n_sound} sound hypotheses "
                              f"{worst_hyp} from plain")
-    log(f"GN kernel on the serving frames' {len(recorded)} RANSAC calls: "
+    log(f"RANSAC kernel on the serving frames' {len(recorded)} calls: "
         f"success equal, motion max |diff| {worst:.3g} (tolerance "
         f"{TOL_GN_MOTION}), inlier counts kernel/plain {counts}; "
-        f"{n_sound} sound hypotheses within {worst_hyp:.3g}")
+        f"the GN kernel on their {n_sound} sound hypotheses within "
+        f"{worst_hyp:.3g}")
 
 
 def run_lk_fallback(model, config, stereo, frames, dev) -> None:
     """The LK fallback at serving size, forced on every frame by a
-    fallback fraction above 1: six GN launches and one LK tracking call a
-    frame, the motion within TOL_GN_MOTION of the same frames with the
-    plain solve."""
+    fallback fraction above 1: two RANSAC launches, no Gauss-Newton launch
+    and one LK tracking call a frame, the motion within TOL_GN_MOTION of
+    the same frames with the plain RANSAC."""
     forced = config.replace(egomotion=dataclasses.replace(
         config.egomotion, lk_fallback_frac=1.01))
     reset_counts()
-    per_frame = {"gauss_newton": [], "lk_track": []}
+    per_frame = {"ransac_gn": [], "gauss_newton": [], "lk_track": []}
     stage_ms = {}
     outs, _ = run_frames(model, forced, stereo, frames, dev,
                          stage_ms=stage_ms, per_frame=per_frame)
-    if per_frame["lk_track"] != [1] * len(frames) or per_frame[
-            "gauss_newton"] != [6] * len(frames):
+    n = len(frames)
+    if per_frame != {"ransac_gn": [2] * n, "gauss_newton": [0] * n,
+                     "lk_track": [1] * n}:
         raise AssertionError(f"forced LK fallback: per frame "
-                             f"{json.dumps(per_frame)}, expected 1 LK call "
-                             f"and 6 gauss_newton launches")
+                             f"{json.dumps(per_frame)}, expected 1 LK call, "
+                             f"2 ransac_gn and no gauss_newton launch")
     with plain_gauss_newton():
         plain, _ = run_frames(model, forced, stereo, frames, dev)
     worst = 0.0
     for k, (a, b) in enumerate(zip(outs, plain)):
         if bool(a.ego_success) != bool(b.ego_success):
             raise AssertionError(f"forced LK fallback: frame {k} ego "
-                                 f"success differs from the plain solve")
+                                 f"success differs from the plain RANSAC")
         worst = max(worst, float((a.motion - b.motion).abs().max()))
     if not worst <= TOL_GN_MOTION:
         raise AssertionError(f"forced LK fallback: motion {worst} from the "
-                             f"plain solve")
-    log(f"forced LK fallback over {len(frames)} frames: 6 gauss_newton "
+                             f"plain RANSAC")
+    log(f"forced LK fallback over {len(frames)} frames: 2 ransac_gn "
         f"launches and 1 LK call a frame, ego success "
         f"{[bool(o.ego_success) for o in outs]}, motion max |diff| from the "
-        f"plain solve {worst:.3g} (tolerance {TOL_GN_MOTION}); ego-motion "
+        f"plain RANSAC {worst:.3g} (tolerance {TOL_GN_MOTION}); ego-motion "
         f"{stage_ms['egomotion'] / len(frames):.3f} ms/frame")
 
 
@@ -2535,15 +2712,15 @@ def check_default_path_per_frame(per_frame, what: str,
                                  every_frame_busy: bool = True) -> None:
     """Every default-path kernel on every frame: the census pair, the
     three SGM v2 kernels, the correlation's levels and the gather at their
-    counts, the Gauss-Newton solve three times (six with the LK
-    fallback), CC and stats at least once on every frame that has a
-    previous one (the first frame has no velocities, so nothing to
-    cluster; without ``every_frame_busy``, on some frame: a frame with no
-    dynamic pixel takes the quiet early-out); no v1-only kernel and no
+    counts, the RANSAC kernel once (twice with the LK fallback) and the
+    Gauss-Newton kernel never, CC and stats at least once on every frame
+    that has a previous one (the first frame has no velocities, so nothing
+    to cluster; without ``every_frame_busy``, on some frame: a frame with
+    no dynamic pixel takes the quiet early-out); no v1-only kernel and no
     fused construct."""
     for k, c in enumerate(per_frame):
-        want = dict(DEFAULT_PATH_KERNELS,
-                    gauss_newton=6 if c["lk_track"] else 3)
+        want = dict(DEFAULT_PATH_KERNELS, gauss_newton=0,
+                    ransac_gn=2 if c["lk_track"] else 1)
         bad = {n: c[n] for n, v in want.items() if c[n] != v}
         bad.update({n: c[n] for n in V1_ONLY_KERNELS + ("sceneflow_fused",)
                     if c[n]})
@@ -2603,7 +2780,8 @@ def run_quality(model, dev) -> None:
             "launches_per_frame": {
                 n: [c[n] for c in per_frame]
                 for n in list(DEFAULT_PATH_KERNELS)
-                + ["cc", "cluster_stats", "gauss_newton", "lk_track"]},
+                + ["cc", "cluster_stats", "ransac_gn", "gauss_newton",
+                   "lk_track"]},
             "wall_s": round(wall, 3)}), flush=True)
         failed += [f"{name}: {g} = {v} (limit {lim})"
                    for g, v, lim, ok in gates if not ok]
@@ -3261,7 +3439,7 @@ def run_spatial(model, config, stereo, dev) -> None:
         want = {"sgm1_census": n, "sgm_vertical": n, "sgm_horizontal": n,
                 "sgm_wta": n, "corr": len(CORR_LEVELS) * n, "gather": n}
         bad = {k: c[k] for k, v in want.items() if c[k] != v}
-        if bad or c["gauss_newton"] < 3 * n:
+        if bad or c["ransac_gn"] < n or c["gauss_newton"]:
             raise AssertionError(f"spatial: rank {r} launched {c}")
     step_ms = [float(t) for t in ranks[0]["step_ms"]]
     log(f"spatial ({card()}): 2 gloo ranks on one card, (data 1, model 2), "

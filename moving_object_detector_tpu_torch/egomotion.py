@@ -1,9 +1,9 @@
 """Stereo visual odometry (the JAX package's ``egomotion.py``): Harris
 corners with NMS and bucketed top-K selection, correspondences from the
 dense flow (or pyramidal LK), RANSAC over batched 3-point Gauss-Newton
-hypotheses scored by MSAC, and a two-pass refinement of the best few.
-Each batch of Gauss-Newton solves is one call of
-``ops/gauss_newton_cuda.solve_pose``: one kernel launch on the card.
+hypotheses scored by MSAC, and a two-pass refinement of the best few:
+the whole RANSAC is one call of ``ops/gauss_newton_cuda.ransac_solve``,
+one kernel launch on the card.
 
 Returns the camera motion M with p_now = M @ p_prev. All math is f32.
 Hypotheses are drawn with ``torch.multinomial`` from an explicit
@@ -167,13 +167,6 @@ def lk_track(prev_img, now_img, pts, cfg: EgoMotionConfig):
     return tracked, ok
 
 
-def _reprojection_residuals(tf, pts3d, obs_uv, cam: CameraModel):
-    """(..., N, 2) residuals pi(M X) - x, the moved points and the
-    positive-depth mask."""
-    return gauss_newton_cuda.reprojection_residuals(
-        tf, pts3d, obs_uv, cam.fx, cam.fy, cam.cx, cam.cy)
-
-
 _chol_solve6 = gauss_newton_cuda.chol_solve6
 
 
@@ -184,63 +177,27 @@ def _solve_pose(pts3d, obs_uv, weights, cam: CameraModel, iters: int):
         pts3d, obs_uv, weights, gauss_newton_cuda.camera_vector(cam), iters)
 
 
-def _msac_score(err, valid, cfg: EgoMotionConfig):
-    """Truncated squared reprojection error summed over valid features."""
-    th2 = cfg.inlier_threshold_px ** 2
-    return torch.where(valid, torch.clamp(err ** 2, max=th2),
-                       torch.full_like(err, th2)).sum(-1)
-
-
 def _ransac_gn_solve(pts3d, tracked, feat_valid, cam, generator,
                      cfg: EgoMotionConfig, sample_idx=None):
     """RANSAC over 3-point Gauss-Newton hypotheses plus the two-pass
-    refinement of the ``refine_candidates`` best by MSAC score. Returns
-    (motion 4x4, success bool, inlier count int32), as 0-d tensors.
+    refinement of the ``refine_candidates`` best by MSAC score
+    (``gauss_newton_cuda.ransac_solve``: one kernel launch on the card).
+    Returns (motion 4x4, success bool, inlier count int32), as 0-d
+    tensors.
 
     ``sample_idx`` (hypotheses, sample) overrides the draw, so a test can
     inject the JAX package's indices."""
-    n = pts3d.shape[0]
-    weights_all = feat_valid.float()
     if sample_idx is None:
         # Weighted sampling without replacement over the valid features.
         # The floor keeps multinomial defined when fewer than `sample`
         # features are valid (such a frame fails min_inliers anyway).
-        p = torch.clamp(weights_all, min=1e-20)
+        p = torch.clamp(feat_valid.float(), min=1e-20)
         sample_idx = torch.multinomial(
-            p.expand(cfg.ransac_hypotheses, n), cfg.ransac_sample,
-            replacement=False, generator=generator)
-    sample_idx = sample_idx.to(pts3d.device).long()
-    ones = torch.ones(sample_idx.shape, dtype=torch.float32,
-                      device=pts3d.device)
-    cam_vec = gauss_newton_cuda.camera_vector(cam)
-    tfs = gauss_newton_cuda.solve_pose(pts3d[sample_idx], tracked[sample_idx],
-                                       ones, cam_vec, cfg.gn_iters_hypothesis)
-    res, _, ok = _reprojection_residuals(tfs, pts3d, tracked, cam)
-    err = torch.linalg.vector_norm(res, dim=-1)
-    inliers = feat_valid & ok & (err < cfg.inlier_threshold_px)
-    scores = _msac_score(err, feat_valid & ok, cfg)
-
-    k_cand = max(1, min(cfg.refine_candidates, cfg.ransac_hypotheses))
-    top_idx = torch.sort(scores, stable=True).indices[:k_cand]
-
-    tf = gauss_newton_cuda.solve_pose(pts3d, tracked,
-                                      inliers[top_idx].float(), cam_vec,
-                                      cfg.gn_iters_refine)
-    res, _, ok = _reprojection_residuals(tf, pts3d, tracked, cam)
-    err = torch.linalg.vector_norm(res, dim=-1)
-    tight = feat_valid & ok & (err < 0.5 * cfg.inlier_threshold_px)
-    tf = gauss_newton_cuda.solve_pose(pts3d, tracked, tight.float(), cam_vec,
-                                      cfg.gn_iters_refine)
-    res, _, ok = _reprojection_residuals(tf, pts3d, tracked, cam)
-    err = torch.linalg.vector_norm(res, dim=-1)
-    fin = feat_valid & ok & (err < cfg.inlier_threshold_px)
-    counts = fin.sum(-1).to(torch.int32)
-    scores_r = _msac_score(err, feat_valid & ok, cfg)
-    best = torch.argmin(scores_r)
-    count = counts[best]
-    success = count >= cfg.min_inliers
-    eye = torch.eye(4, dtype=torch.float32, device=pts3d.device)
-    return torch.where(success, tf[best], eye), success, count
+            p.expand(cfg.ransac_hypotheses, pts3d.shape[0]),
+            cfg.ransac_sample, replacement=False, generator=generator)
+    return gauss_newton_cuda.ransac_solve(
+        pts3d, tracked, feat_valid, gauss_newton_cuda.camera_vector(cam),
+        sample_idx.to(pts3d.device).long(), cfg)
 
 
 def estimate_motion(prev_left, now_left, disparity_prev: DisparityImage,

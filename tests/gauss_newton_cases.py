@@ -1,9 +1,10 @@
-"""Inputs of ego-motion's Gauss-Newton pose solve, shared by the CPU tests
-against the JAX package (test_torch_gauss_newton.py), the card tests
-against the plain version (test_torch_kernels_gpu.py) and chip_smoke.py:
-correspondences of a known camera motion, the two shapes the RANSAC gives
-the solve, and the rule that tells an ill-conditioned 3-point hypothesis
-from a sound one. numpy only: no JAX, no torch.
+"""Inputs of ego-motion's Gauss-Newton pose solve and its RANSAC, shared
+by the CPU tests against the JAX package (test_torch_gauss_newton.py,
+test_torch_ransac_gn.py), the card tests against the plain versions
+(test_torch_kernels_gpu.py) and chip_smoke.py: correspondences of a known
+camera motion, the two shapes the RANSAC gives the solve, the RANSAC's
+cases, and the rule that tells an ill-conditioned 3-point hypothesis from
+a sound one. numpy only: no JAX, no torch.
 """
 
 import numpy as np
@@ -26,6 +27,13 @@ SHAPES = {"hypothesis": (64, 3, 5), "refine": (4, 512, 8),
 # move by up to 1.
 COND_LIMIT = 1e5
 RES_LIMIT = 0.01
+# The RANSAC's cases, (features N, hypotheses H, refine_candidates K):
+# the serving shape (EgoMotionConfig's 512 features, 64 hypotheses, 4
+# candidates), one and more candidates than a thread-block cluster holds
+# (16), and odd N and H.
+RANSAC_CASES = {"serving": (512, 64, 4), "serving_k1": (512, 64, 1),
+                "serving_k16": (512, 64, 16), "odd": (37, 50, 4),
+                "odd_k1": (37, 50, 1), "odd_k16": (37, 50, 16)}
 
 
 def rotation(rotvec=ROTVEC) -> np.ndarray:
@@ -66,6 +74,20 @@ def problem(shape: str, seed: int = 0):
     pts, uv = correspondences(n, seed)
     weights = (rng.random((b, n)) < 0.8).astype(np.float32)
     return pts, uv, weights, iters
+
+
+def ransac_case(name: str, seed: int = 0):
+    """(pts3d, uv, valid, idx) of a RANSAC case: correspondences with 8 %
+    outliers, every tenth feature (from the fourth) invalid, and H rows of
+    3 distinct valid features."""
+    n, h, _ = RANSAC_CASES[name]
+    pts, uv = correspondences(n, seed)
+    valid = np.ones(n, bool)
+    valid[3::10] = False
+    rng = np.random.default_rng(seed + 7)
+    idx = np.stack([rng.choice(np.flatnonzero(valid), 3, replace=False)
+                    for _ in range(h)])
+    return pts, uv, valid, idx
 
 
 def sound(tfs, pts3d, uv, weights, damping: float = 1e-4, cam=CAM):

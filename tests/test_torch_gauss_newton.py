@@ -121,22 +121,31 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case):
 
 
 def test_ransac_calls_the_wrapper_at_its_three_sites(monkeypatch):
-    """One call for the hypotheses ((64, 3) points each) and one for each
-    refinement pass ((4, 512) weights over the shared points)."""
-    calls = []
-    real = gn.solve_pose
+    """``_ransac_gn_solve`` makes one call of the RANSAC wrapper; its plain
+    version calls the plain solve at the RANSAC's three sites: the
+    hypotheses ((64, 3) points each) and each refinement pass ((4, 512)
+    weights over the shared points)."""
+    calls, ransac_calls = [], []
+    real, real_ransac = gn.solve_pose_plain, gn.ransac_solve
 
     def spy(pts3d, obs_uv, weights, cam, iters, *a, **k):
         calls.append((tuple(pts3d.shape), tuple(weights.shape), iters))
         return real(pts3d, obs_uv, weights, cam, iters, *a, **k)
 
-    monkeypatch.setattr(gn, "solve_pose", spy)
+    def ransac_spy(pts3d, tracked, feat_valid, cam, sample_idx, cfg, **k):
+        ransac_calls.append((tuple(pts3d.shape), tuple(sample_idx.shape)))
+        return real_ransac(pts3d, tracked, feat_valid, cam, sample_idx, cfg,
+                           **k)
+
+    monkeypatch.setattr(gn, "solve_pose_plain", spy)
+    monkeypatch.setattr(gn, "ransac_solve", ransac_spy)
     pts, uv = correspondences(512)
     cfg = EgoMotionConfig()
     motion, success, count = tego._ransac_gn_solve(
         torch.from_numpy(pts), torch.from_numpy(uv),
         torch.ones(512, dtype=torch.bool), TCam.create(*CAM, device="cpu"),
         torch.Generator().manual_seed(0), cfg)
+    assert ransac_calls == [((512, 3), (64, 3))]
     assert calls == [((64, 3, 3), (64, 3), 5), ((512, 3), (4, 512), 8),
                      ((512, 3), (4, 512), 8)]
     assert bool(success) and int(count) > 400

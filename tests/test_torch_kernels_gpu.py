@@ -54,7 +54,14 @@ from dp_cc_cases import (
     stats_case,
     wta_total,
 )
-from gauss_newton_cases import CAM, correspondences, problem, sound
+from gauss_newton_cases import (
+    CAM,
+    RANSAC_CASES,
+    correspondences,
+    problem,
+    ransac_case,
+    sound,
+)
 from sceneflow_cases import FUSED_CASES, fused_case
 
 pytestmark = pytest.mark.gpu
@@ -903,17 +910,106 @@ def test_ransac_on_the_kernel_equals_the_plain_run(cuda, monkeypatch):
     rng = np.random.default_rng(3)
     idx = torch.from_numpy(np.stack([rng.choice(492, 3, replace=False)
                                      for _ in range(64)])).to(cuda)
-    before = gauss_newton_cuda.LAUNCHES["gauss_newton"]
+    before = gauss_newton_cuda.LAUNCHES["ransac_gn"]
     kernel = egomotion._ransac_gn_solve(pts, uv, valid, cam, None, cfg, idx)
     torch.cuda.synchronize()
-    assert gauss_newton_cuda.LAUNCHES["gauss_newton"] == before + 3
-    monkeypatch.setattr(gauss_newton_cuda, "solve_pose",
-                        lambda *a, **k: gauss_newton_cuda.solve_pose_plain(
+    assert gauss_newton_cuda.LAUNCHES["ransac_gn"] == before + 1
+    monkeypatch.setattr(gauss_newton_cuda, "ransac_solve",
+                        lambda *a, **k: gauss_newton_cuda.ransac_solve_plain(
                             *a, **k))
     plain = egomotion._ransac_gn_solve(pts, uv, valid, cam, None, cfg, idx)
     assert bool(kernel[1]) == bool(plain[1]) and bool(kernel[1])
     assert int(kernel[2]) == int(plain[2])
     assert float((kernel[0] - plain[0]).abs().max()) <= 1e-4
+
+
+def test_fast_division_and_root_are_the_cards_own(cuda):
+    """The kernels' branch-free division and square root (``FastOps``,
+    with the IEEE fallback its callers take) equal the card's ``a / b``
+    and ``sqrtf`` bit for bit on 2^24 hashed inputs, most of them on the
+    fast path."""
+    counts = gauss_newton_cuda.ieee_ops_check(1 << 24, seed=7, device=cuda)
+    assert counts["div_mismatches"] == 0 and counts["sqrt_mismatches"] == 0
+    assert counts["div_fast"] > counts["n"] // 3
+    assert counts["sqrt_fast"] > counts["n"] // 3
+
+
+def _ransac_args(cuda, name, **kw):
+    from moving_object_detector_tpu_torch.config import EgoMotionConfig
+
+    pts, uv, valid, idx = ransac_case(name)
+    _, h, k = RANSAC_CASES[name]
+    args = [torch.from_numpy(x).to(cuda) for x in (pts, uv, valid)]
+    args += [torch.tensor(CAM, device=cuda), torch.from_numpy(idx).to(cuda)]
+    return args, EgoMotionConfig(ransac_hypotheses=h, refine_candidates=k,
+                                 **kw)
+
+
+@pytest.mark.parametrize("threads", gauss_newton_cuda.RANSAC_THREADS)
+@pytest.mark.parametrize("name", sorted(RANSAC_CASES))
+def test_ransac_kernel_matches_plain(cuda, name, threads):
+    """The whole RANSAC in one launch of ``ransac_gn`` and none of
+    ``gauss_newton``, with outliers and invalid features, one to sixteen
+    candidates: the same success and inlier count as the plain version,
+    the motion within 1e-4 (the sums over the points run in another
+    order)."""
+    args, cfg = _ransac_args(cuda, name)
+    before = dict(gauss_newton_cuda.LAUNCHES)
+    out = gauss_newton_cuda.ransac_solve(*args, cfg, threads=threads)
+    torch.cuda.synchronize()
+    assert gauss_newton_cuda.LAUNCHES == dict(
+        before, ransac_gn=before["ransac_gn"] + 1)
+    ref = gauss_newton_cuda.ransac_solve_plain(*args, cfg)
+    assert bool(out[1]) == bool(ref[1]) and bool(out[1])
+    assert int(out[2]) == int(ref[2])
+    assert float((out[0] - ref[0]).abs().max()) <= 1e-4
+
+
+def test_ransac_kernel_makes_no_host_sync(cuda):
+    """Neither the wrapper nor ``_ransac_gn_solve`` with injected indices
+    waits for the card: synchronizing calls are made errors."""
+    from moving_object_detector_tpu_torch import egomotion
+    from moving_object_detector_tpu_torch.types import CameraModel
+
+    args, cfg = _ransac_args(cuda, "serving")
+    cam = CameraModel.create(*CAM, device=cuda)
+    gauss_newton_cuda.ransac_solve(*args, cfg)  # makes the stream's ticket
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = gauss_newton_cuda.ransac_solve(*args, cfg)
+        ego = egomotion._ransac_gn_solve(*args[:3], cam, None, cfg, args[4])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for a, b in zip(out, ego):
+        assert torch.equal(a, b)
+
+
+def test_ransac_kernel_is_bit_identical_run_to_run(cuda):
+    args, cfg = _ransac_args(cuda, "serving_k16")
+    first = gauss_newton_cuda.ransac_solve(*args, cfg)
+    for _ in range(3):
+        again = gauss_newton_cuda.ransac_solve(*args, cfg)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("what", ["no_valid_feature", "too_few_inliers"])
+def test_ransac_kernel_fails_to_the_identity(cuda, what):
+    """With no valid feature, or a min_inliers above every count, the
+    motion is the identity and success False, as in the plain version;
+    the count is the best candidate's."""
+    if what == "no_valid_feature":
+        args, cfg = _ransac_args(cuda, "odd")
+        args[2] = torch.zeros_like(args[2])
+    else:
+        args, cfg = _ransac_args(cuda, "serving", min_inliers=10_000)
+    out = gauss_newton_cuda.ransac_solve(*args, cfg)
+    ref = gauss_newton_cuda.ransac_solve_plain(*args, cfg)
+    assert torch.equal(out[0], torch.eye(4, device=cuda))
+    assert not bool(out[1]) and not bool(ref[1])
+    assert int(out[2]) == int(ref[2])
+    if what == "no_valid_feature":
+        assert int(out[2]) == 0
 
 
 def test_harvest_with_the_dashboard_launches_no_kernel(cuda):
