@@ -1624,8 +1624,27 @@ def check_ransac_kernel(dev, report):
         f"{bms:.6f} ms ({by})")
 
 
-def run_frames(model, config, stereo, frames, dev, stage_ms=None,
-               per_frame=None):
+def synchronized_stage_ms(rec) -> dict:
+    """Total ms of each of ``detect_step``'s stages in a recorder that
+    synchronized the card around them."""
+    from moving_object_detector_tpu_torch.utils.profiling import SYNC_PREFIX
+
+    return {k: v for k, v in rec.totals_ms().items()
+            if not k.startswith(SYNC_PREFIX)}
+
+
+@contextlib.contextmanager
+def synchronized_stages(dev):
+    """Record ``detect_step``'s stage spans with the card synchronized
+    around each: yields the recorder."""
+    from moving_object_detector_tpu_torch.utils import profiling
+
+    with profiling.recording(
+            profiling.SpanRecorder(synchronize=dev)) as rec:
+        yield rec
+
+
+def run_frames(model, config, stereo, frames, dev, per_frame=None):
     """Drive ``detect_step`` over the frames from a fresh state: (outputs,
     ms per step). ``per_frame`` maps counter names (a kernel's, or
     "lk_track" for the LK fallback's tracking calls) to lists that receive
@@ -1644,7 +1663,7 @@ def run_frames(model, config, stereo, frames, dev, stage_ms=None,
         sync(dev)
         t0 = time.perf_counter()
         state, out = detect_step(model, state, lt, rt, 0.1 * k, stereo,
-                                 config, stage_ms=stage_ms)
+                                 config)
         sync(dev)
         step_ms.append((time.perf_counter() - t0) * 1e3)
         outs.append(out)
@@ -1994,10 +2013,11 @@ def run_checks_and_paths(dev, report) -> None:
     log(f"matched pixels outside the gather window over {len(outs)} frames: "
         f"{matches_outside_window(outs, config.scene_flow)}")
 
-    stage_ms = {}
-    run_frames(model, config, stereo, frames, dev, stage_ms=stage_ms)
+    with synchronized_stages(dev) as rec:
+        run_frames(model, config, stereo, frames, dev)
     log("per-stage ms/frame (synchronized): " + json.dumps(
-        {k: round(v / len(frames), 3) for k, v in stage_ms.items()}))
+        {k: round(v / len(frames), 3)
+         for k, v in synchronized_stage_ms(rec).items()}))
 
     # The same frames with the plain gather, CC and stats: identical
     # detections (SGM and correlation keep their kernels, so disparity and
@@ -2259,9 +2279,10 @@ def run_lk_fallback(model, config, stereo, frames, dev) -> None:
         config.egomotion, lk_fallback_frac=1.01))
     reset_counts()
     per_frame = {"ransac_gn": [], "gauss_newton": [], "lk_track": []}
-    stage_ms = {}
-    outs, _ = run_frames(model, forced, stereo, frames, dev,
-                         stage_ms=stage_ms, per_frame=per_frame)
+    with synchronized_stages(dev) as rec:
+        outs, _ = run_frames(model, forced, stereo, frames, dev,
+                             per_frame=per_frame)
+    stage_ms = synchronized_stage_ms(rec)
     n = len(frames)
     if per_frame != {"ransac_gn": [2] * n, "gauss_newton": [0] * n,
                      "lk_track": [1] * n}:
@@ -2355,8 +2376,9 @@ def run_v1_runner_path(model, config, stereo, frames, outs, loop_ms, dev,
 
     # In turns within this run, since the host's speed drifts: the
     # hand-driven loop, the runner twice, the loop again, all on v1.
-    stage_ms = {}
-    run_frames(model, v1, stereo, frames, dev, stage_ms=stage_ms)  # warm-up
+    with synchronized_stages(dev) as rec:
+        run_frames(model, v1, stereo, frames, dev)  # warm-up
+    stage_ms = synchronized_stage_ms(rec)
     _, loop_a = run_frames(model, v1, stereo, frames, dev)
     reset_counts()
     runner, results, wall_ms, runner_a = through_runner()

@@ -24,6 +24,7 @@ from .ops import cluster_stats_cuda, clustering_cuda, resolve_backend
 from .ops.cluster_stats import cluster_stats
 from .ops.clustering import connected_components
 from .types import MovingObjects, SceneFlowCloud
+from .utils import profiling
 
 
 def cluster_scene_flow(cloud: SceneFlowCloud,
@@ -76,10 +77,11 @@ def _cluster_frame(cloud, vel, vnorm, dynamic, h, w, cap, kwargs):
     ci = torch.arange(w, dtype=torch.int32, device=dev)
     masked = lambda m, v, fill: torch.where(m, v, torch.full_like(v, fill))
     # One fetch of the dynamic extent decides the branch (r1 < 0: quiet).
-    r0, r1, c0, c1 = torch.stack([
-        masked(rows_any, ri, h).min(), masked(rows_any, ri, -1).max(),
-        masked(cols_any, ci, w).min(), masked(cols_any, ci, -1).max(),
-    ]).tolist()
+    with profiling.sync_point("clusterer_extent"):
+        r0, r1, c0, c1 = torch.stack([
+            masked(rows_any, ri, h).min(), masked(rows_any, ri, -1).max(),
+            masked(cols_any, ci, w).min(), masked(cols_any, ci, -1).max(),
+        ]).tolist()
     if r1 < 0:  # quiet frame: no dynamic pixel
         return _empty(h, w, cap, dev)
 
@@ -123,15 +125,17 @@ def _cluster_frame(cloud, vel, vnorm, dynamic, h, w, cap, kwargs):
     gap = torch.where(cols_any & (prev_dyn >= 0), ci - prev_dyn - 1,
                       torch.full_like(ci, -1))
     i_star = torch.argmax(gap)  # right side's first column
-    c_l = prev_dyn[i_star]  # left side's last column
+    with profiling.sync_point("clusterer_gap_column"):
+        c_l = prev_dyn[i_star]  # left side's last column (a 0-d index)
     colmask_l = (ci <= c_l)[None, :]
     dyn_l = dynamic & colmask_l
     dyn_r = dynamic & ~colmask_l
     rl, rr = dyn_l.any(dim=1), dyn_r.any(dim=1)
-    i_star, c_l, r0l, r1l, r0r, r1r, nd = torch.stack([
-        i_star.to(torch.int32), c_l, masked(rl, ri, h).min(),
-        masked(rl, ri, -1).max(), masked(rr, ri, h).min(),
-        masked(rr, ri, -1).max(), kwargs["neighbor_distance"]]).tolist()
+    with profiling.sync_point("clusterer_windows"):
+        i_star, c_l, r0l, r1l, r0r, r1r, nd = torch.stack([
+            i_star.to(torch.int32), c_l, masked(rl, ri, h).min(),
+            masked(rl, ri, -1).max(), masked(rr, ri, h).min(),
+            masked(rr, ri, -1).max(), kwargs["neighbor_distance"]]).tolist()
     fits2 = (c_l >= 0 and i_star - c_l > nd
              and r1l - r0l < ch and c_l - c0 < cw
              and r1r - r0r < ch and c1 - i_star < cw)

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from .config import EgoMotionConfig
 from .ops import gauss_newton_cuda, geometry
 from .types import CameraModel, DisparityImage
+from .utils import profiling
 
 
 def _box_sum(x: torch.Tensor, size: int) -> torch.Tensor:
@@ -241,7 +242,9 @@ def estimate_motion(prev_left, now_left, disparity_prev: DisparityImage,
 
     if dense_flow is not None and cfg.lk_fallback:
         n_valid = torch.clamp(feat_valid.sum(), min=1)
-        if bool(count < cfg.lk_fallback_frac * n_valid):
+        with profiling.sync_point("egomotion_lk_fallback"):
+            fall_back = bool(count < cfg.lk_fallback_frac * n_valid)
+        if fall_back:
             h_, w_ = prev_left.shape
             reach = cfg.lk_window * (2 ** (cfg.lk_pyramid_levels - 1)) + 2
             in_reach = ((pts[:, 0] >= reach) & (pts[:, 0] < w_ - reach)

@@ -13,6 +13,7 @@ import collections
 import ctypes
 import os
 import threading
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -120,7 +121,11 @@ class FrameRing:
     consumer: ``pop() -> (left, right, t) | None``.
 
     drop_oldest=True mirrors the reference's queue_size=1 latest-wins
-    subscriptions; False gives blocking backpressure.
+    subscriptions; False gives blocking backpressure. ``dropped()``
+    counts the pairs pushed out to make room. Each push is stamped by its
+    sequence number as it begins (``time.perf_counter_ns``), and a pop
+    leaves its pair's stamp in ``pushed_ns`` (None where a later push has
+    reused the slot).
     """
 
     def __init__(
@@ -163,6 +168,11 @@ class FrameRing:
             self._drop_oldest = drop_oldest
             self._cond = threading.Condition()
         self._seq = 0
+        self._dropped = 0
+        # (seq, ns) by seq % (capacity + 1): a popped pair's slot is not
+        # reused before its pop, the ring holding at most ``capacity``.
+        self._stamps: list = [(-1, 0)] * (capacity + 1)
+        self.pushed_ns: Optional[int] = None
 
     # -- producer -----------------------------------------------------------
     def push(self, left: np.ndarray, right: np.ndarray, t: float,
@@ -177,6 +187,8 @@ class FrameRing:
             raise ValueError(
                 f"frame pair of {buf.size} values does not fit the ring's "
                 f"{self._frame_shape} frames")
+        self._stamps[self._seq % len(self._stamps)] = (
+            self._seq, time.perf_counter_ns())
         if self._ring is not None:
             ok = self._lib.modt_ring_push(
                 self._ring, buf.tobytes(), float(t), self._seq, timeout
@@ -189,6 +201,8 @@ class FrameRing:
                 while len(self._deque) >= self._capacity:
                     if not self._cond.wait(timeout=deadline):
                         return False
+            elif len(self._deque) == self._deque.maxlen:
+                self._dropped += 1  # the append pushes the oldest out
             self._deque.append((buf, float(t), self._seq))
             self._seq += 1
             self._cond.notify_all()
@@ -225,6 +239,7 @@ class FrameRing:
                 )
                 frames = flat.view(np.float32)[: self.frame_floats].copy()
                 self._lib.modt_ring_release(self._ring)
+            self._popped(seq.value)
             left = frames[: self._frame_px].reshape(self._frame_shape)
             right = frames[self._frame_px :].reshape(self._frame_shape)
             return left, right, float(ts.value)
@@ -234,11 +249,16 @@ class FrameRing:
                     return None
             if not self._deque:
                 return None
-            buf, t, _ = self._deque.popleft()
+            buf, t, seq = self._deque.popleft()
             self._cond.notify_all()
+        self._popped(seq)
         left = buf[: self._frame_px].reshape(self._frame_shape)
         right = buf[self._frame_px :].reshape(self._frame_shape)
         return left, right, t
+
+    def _popped(self, seq: int) -> None:
+        stamp_seq, ns = self._stamps[seq % len(self._stamps)]
+        self.pushed_ns = ns if stamp_seq == seq else None
 
     def size(self) -> int:
         if self._ring is not None:
@@ -248,7 +268,7 @@ class FrameRing:
     def dropped(self) -> int:
         if self._ring is not None:
             return int(self._lib.modt_ring_dropped(self._ring))
-        return 0
+        return self._dropped
 
     def close(self):
         if self._ring is not None:

@@ -10,7 +10,13 @@ JAX package's ``io/runner.py``).
   (marker JSON, label / flow / depth / velocity images) and shown on the
   live dashboard (``io/dashboard.py``), both from that host copy;
 * the state left by a run can be snapshotted and a later run resumed
-  from it.
+  from it;
+* while a span recorder is active (``utils/profiling.py``), each pair
+  ``k`` gets spans ``ring`` (its push to its pop), ``ring_pop``,
+  ``dispatch``, ``pending`` (the end of its dispatch to the start of its
+  harvest) and ``harvest`` of unit ``k``, and the run the counter
+  ``ring_drops`` of the unit of its first pair; ``ring_drops`` of the
+  runner holds the last run's count in any case.
 
 The runner works on ``cuda`` unless the caller passes ``device="cpu"``;
 without CUDA and without a device it raises.
@@ -33,6 +39,7 @@ from .. import resolve_device
 from ..config import PipelineConfig
 from ..tunables import Tunables
 from ..types import StereoModel, to_host
+from ..utils import profiling
 from ..utils.profiling import StageTimer
 from . import viz
 from .frame_ring import FrameRing
@@ -158,6 +165,7 @@ class PipelineRunner:
         self._reconfigure_mtime: float = -1.0
         self.final_state = None
         self.last_results: list[FrameResult] = []
+        self.ring_drops = 0  # pairs the ring dropped in the last run
 
     def _maybe_reload_tunables(self) -> bool:
         """Between frames: if the reconfigure file changed, apply its
@@ -266,6 +274,7 @@ class PipelineRunner:
             prev.join(timeout=10.0)
         while self.ring.pop(timeout=0.0) is not None:
             pass  # discard frames left over from a truncated previous run
+        drops0 = self.ring.dropped()
         token = _RunToken()
         self._token = token
         feeder = threading.Thread(
@@ -275,7 +284,7 @@ class PipelineRunner:
         feeder.start()
 
         results: list[FrameResult] = []
-        pending = None  # (index, t, FrameOutput) one frame behind
+        pending = None  # (index, t, FrameOutput, left, dispatch end) behind
         # Frame numbering (and export filenames) continue across a resume.
         k0 = int(state.frame_index)
         k = k0
@@ -283,16 +292,17 @@ class PipelineRunner:
             while max_frames is None or k < k0 + max_frames:
                 if token.done.is_set() and self.ring.size() == 0:
                     break  # the sequence has ended and is consumed
-                with self.timer.stage("ring_pop"):
+                with self.timer.stage("ring_pop", unit=k):
                     frame = self.ring.pop(timeout=0.25)
                 if frame is None:
                     if token.done.is_set() and self.ring.size() == 0:
                         break
                     continue
+                profiling.add("ring", self.ring.pushed_ns, unit=k)
                 left, right, t = frame
                 self._maybe_reload_tunables()
                 self._apply_dashboard_tunables()
-                with self.timer.stage("dispatch"):
+                with self.timer.stage("dispatch", unit=k):
                     left_d, right_d = self._upload(left, right)
                     state, out = detect_step(
                         self.flow_model, state, left_d, right_d, t,
@@ -301,7 +311,7 @@ class PipelineRunner:
                 # Harvest the previous frame after this one is enqueued.
                 if pending is not None:
                     results.append(self._harvest(*pending))
-                pending = (k, t, out, left)
+                pending = (k, t, out, left, profiling.clock_ns())
                 k += 1
             if pending is not None:
                 results.append(self._harvest(*pending))
@@ -320,6 +330,10 @@ class PipelineRunner:
             # the progress made so far snapshottable via save_state.
             self.final_state = state
             self.last_results = results
+            self.ring_drops = self.ring.dropped() - drops0
+            rec = profiling.active()
+            if rec is not None:
+                rec.count("ring_drops", self.ring_drops, unit=k0)
         if token.error is not None:
             raise RuntimeError(
                 f"frame feeder failed after {len(results)} processed "
@@ -341,9 +355,11 @@ class PipelineRunner:
 
         return restore_pipeline_state(path, device=self.device)
 
-    def _harvest(self, index: int, t: float, out, left=None) -> FrameResult:
+    def _harvest(self, index: int, t: float, out, left=None,
+                 dispatched_ns: int = 0) -> FrameResult:
         export = bool(self.export_dir) and index % self.export_every == 0
-        with self.timer.stage("harvest"):
+        profiling.add("pending", dispatched_ns, unit=index)
+        with self.timer.stage("harvest", unit=index):
             # One batch of copies of the fields read this frame: the
             # results' always, the exports' on an export frame, the
             # wanted dashboard products'.
@@ -393,10 +409,10 @@ class PipelineRunner:
                     file=sys.stderr,
                 )
         if export:
-            with self.timer.stage("export"):
+            with self.timer.stage("export", unit=index):
                 self._export(index, host)
         if self.dashboard is not None:
-            with self.timer.stage("dashboard"):
+            with self.timer.stage("dashboard", unit=index):
                 self.dashboard.update(index, t, host, left, self.config,
                                       self._stereo_host)
         return result

@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling
+
 
 def _edge_offsets(k: int):
     """Sign-consistent offsets within the (k+1)^2 window, without (0, 0)."""
@@ -126,7 +128,8 @@ def connected_components(dynamic, depth, depth_diff, neighbor_distance=4,
     iters = 0
     for _ in range(max_iters):
         new = propagate(sweep(label))
-        changed = bool((new != label).any())
+        with profiling.sync_point("cc_converged"):
+            changed = bool((new != label).any())
         label = new
         iters += 1
         if not changed:

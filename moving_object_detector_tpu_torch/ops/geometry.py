@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from ..types import CameraModel, DisparityImage
+from ..utils import profiling
 
 
 def pixel_grid(height: int, width: int, device=None):
@@ -47,7 +48,8 @@ def make_se3(rotation: torch.Tensor, translation: torch.Tensor):
     top = torch.cat([rotation, translation[..., :, None]], dim=-1)
     bottom = torch.zeros(rotation.shape[:-2] + (1, 4), dtype=rotation.dtype,
                          device=rotation.device)
-    bottom[..., 0, 3] = 1.0
+    with profiling.sync_point("se3_bottom_row"):
+        bottom[..., 0, 3] = 1.0  # a host scalar copied in
     return torch.cat([top, bottom], dim=-2)
 
 

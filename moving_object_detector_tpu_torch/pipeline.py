@@ -12,9 +12,7 @@ is ``cuda`` unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import time
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +30,7 @@ from .tracker import TrackerState, track_step
 from .tunables import Tunables
 from .types import (DisparityImage, MovingObjects, SceneFlowCloud,
                     StereoModel, TrackedObjects)
+from .utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,6 +222,15 @@ def transform_objects(objects: MovingObjects, tf) -> MovingObjects:
         velocity=geometry.rotate_vectors(tf, objects.velocity))
 
 
+def _on_device(x, dev, site: str, dtype=None) -> torch.Tensor:
+    """``x`` as a tensor on ``dev``; a host value or array is copied in,
+    a wait of the host for the card (sync site ``site``)."""
+    if isinstance(x, torch.Tensor) and x.device == dev:
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+    with profiling.sync_point(site):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+
+
 def ransac_generator(frame_index: int, device) -> torch.Generator:
     """The RANSAC draw of frame ``frame_index``, seeded from (7, index)."""
     gen = torch.Generator(device=device)
@@ -230,25 +238,9 @@ def ransac_generator(frame_index: int, device) -> torch.Generator:
     return gen
 
 
-@contextlib.contextmanager
-def _stage(stage_ms, name: str, device):
-    """Add the wall ms of the enclosed stage to ``stage_ms[name]``,
-    synchronizing the device before and after; a no-op without a dict."""
-    if stage_ms is None:
-        yield
-        return
-    sync = torch.cuda.synchronize if device.type == "cuda" else lambda: None
-    sync()
-    t0 = time.perf_counter()
-    yield
-    sync()
-    stage_ms[name] = stage_ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
-
-
 def detect_step(flow_model, state: PipelineState, left, right, t,
                 stereo: StereoModel, config: PipelineConfig,
-                flow_override=None, disparity_override=None, tunables=None,
-                stage_ms=None):
+                flow_override=None, disparity_override=None, tunables=None):
     """One frame: stereo pair -> disparity, flow, ego-motion, scene flow,
     detections, tracks. Returns (new_state, FrameOutput).
 
@@ -256,20 +248,21 @@ def detect_step(flow_model, state: PipelineState, left, right, t,
     correlation runs on ``config.flownet.corr_backend``, whatever the net
     was built with;
     ``flow_override`` (H, W, 2) / ``disparity_override`` swap in external
-    perception results. A ``stage_ms`` dict receives the per-stage wall
-    ms (sgm, flow, egomotion, scene_flow, clusterer, tracker), with a
-    device synchronization around each stage; leave it None when timing
-    the whole step."""
+    perception results. While a span recorder is active
+    (``utils/profiling.py``) each stage (sgm, flow, egomotion, scene_flow,
+    clusterer, tracker) is a span of unit ``state.frame_index``, and each
+    wait of the host for the card a ``sync.*`` span inside it."""
     dev = state.device
     cam = stereo.cam
-    left = torch.as_tensor(left, device=dev).float()
-    right = torch.as_tensor(right, device=dev).float()
+    profiling.set_unit(state.frame_index)
+    left = _on_device(left, dev, "step_image").float()
+    right = _on_device(right, dev, "step_image").float()
     gray_left, gray_right = luma(left), luma(right)
-    t = torch.as_tensor(t, dtype=torch.float32, device=dev)
+    t = _on_device(t, dev, "step_time", torch.float32)
     if tunables is None:
         tunables = Tunables.from_config(config, device=dev)
 
-    with _stage(stage_ms, "sgm", dev):
+    with profiling.span("sgm"):
         if disparity_override is not None:
             disparity_now = disparity_override
         else:
@@ -277,15 +270,15 @@ def detect_step(flow_model, state: PipelineState, left, right, t,
                                          config)
     disparity_prev = state.prev_disparity
 
-    with _stage(stage_ms, "flow", dev):
+    with profiling.span("flow"):
         if flow_override is not None:
-            flow = torch.as_tensor(flow_override, device=dev).float()
+            flow = _on_device(flow_override, dev, "flow_override").float()
         else:
             flow = _flow_forward(flow_model, state.prev_left, left,
                                  input_scale=config.flow_input_scale,
                                  corr_backend=config.flownet.corr_backend)
 
-    with _stage(stage_ms, "egomotion", dev):
+    with profiling.span("egomotion"):
         motion, ego_ok, _ = estimate_motion(
             luma(state.prev_left), gray_left, disparity_prev, cam,
             ransac_generator(state.frame_index, dev), config.egomotion,
@@ -294,7 +287,7 @@ def detect_step(flow_model, state: PipelineState, left, right, t,
     ego_ok = ego_ok & state.has_prev
     motion = torch.where(ego_ok, motion, eye)
 
-    with _stage(stage_ms, "scene_flow", dev):
+    with profiling.span("scene_flow"):
         # The fused construct derives both clouds from the disparities.
         fused = resolve_backend(config.scene_flow.gather_backend,
                                 dev) == "fused"
@@ -314,7 +307,7 @@ def detect_step(flow_model, state: PipelineState, left, right, t,
                                torch.full_like(cloud.velocity, float("nan")))
         cloud = SceneFlowCloud(points=cloud.points, velocity=velocity)
 
-    with _stage(stage_ms, "clusterer", dev):
+    with profiling.span("clusterer"):
         detections, label_image, cluster_overflow = cluster_scene_flow(
             cloud, config.clusterer, return_overflow=True,
             dynamic_speed=tunables.dynamic_speed,
@@ -329,8 +322,10 @@ def detect_step(flow_model, state: PipelineState, left, right, t,
     cam_to_odom = new_pose @ t_bc
     det_odom = transform_objects(detections, cam_to_odom)
 
-    with _stage(stage_ms, "tracker", dev):
-        if bool(frame_valid):
+    with profiling.span("tracker"):
+        with profiling.sync_point("tracker_frame_valid"):
+            track = bool(frame_valid)
+        if track:
             new_tracker, tracked = track_step(
                 state.tracker, t, det_odom, config.tracker,
                 object_radius=tunables.object_radius,

@@ -24,8 +24,10 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import os
 import sys
 
 
@@ -70,10 +72,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "newest bundled weights if present, 'none' forces "
                         "random init")
     p.add_argument("--report", action="store_true",
-                   help="print per-stage timing report")
+                   help="print per-stage timing report and a row per span "
+                        "(stage, sync site) of the run")
     p.add_argument("--trace-dir", default=None,
                    help="capture a torch.profiler trace of the run into "
-                        "this directory (trace.json, Chrome trace format)")
+                        "this directory (trace.json, Chrome trace format, "
+                        "the run's spans on a track of their own)")
     p.add_argument("--save-state", default=None,
                    help=".npz file: snapshot the pipeline state after the "
                         "run (pose, previous frame, tracker bank) for "
@@ -320,12 +324,16 @@ def main(argv=None, device=None) -> int:
             print(f"# resume: skipping {done} already-processed frames",
                   file=sys.stderr)
             seq = _skipped(seq, done)
-        from .utils.profiling import trace_context
+        from .utils import profiling
 
-        with trace_context(args.trace_dir):
-            results = runner.run(
-                seq, max_frames=args.frames, initial_state=initial_state
-            )
+        spans = None
+        with contextlib.ExitStack() as stack:
+            if args.report or args.trace_dir:
+                spans = stack.enter_context(profiling.recording())
+            with profiling.trace_context(args.trace_dir):
+                results = runner.run(
+                    seq, max_frames=args.frames, initial_state=initial_state
+                )
         if args.save_state:
             runner.save_state(args.save_state)
 
@@ -333,6 +341,11 @@ def main(argv=None, device=None) -> int:
             print(json.dumps(_frame_record(r)))
         if args.report:
             print(runner.report(), file=sys.stderr)
+            trace = None
+            if args.trace_dir:
+                with open(os.path.join(args.trace_dir, "trace.json")) as f:
+                    trace = json.load(f)
+            print(profiling.report(spans, trace), file=sys.stderr)
         return 0
     finally:
         if dashboard is not None:

@@ -20,6 +20,7 @@ import torch
 
 from .config import TrackerConfig
 from .types import MovingObjects, TrackedObjects
+from .utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,10 +60,12 @@ class TrackerState:
 
 
 def _process_noise(cfg: TrackerConfig, device) -> torch.Tensor:
-    return torch.diag(torch.tensor(
-        [cfg.process_noise_pos, cfg.process_noise_pos,
-         cfg.process_noise_vel, cfg.process_noise_vel],
-        dtype=torch.float32, device=device))
+    with profiling.sync_point("tracker_process_noise"):
+        noise = torch.tensor(
+            [cfg.process_noise_pos, cfg.process_noise_pos,
+             cfg.process_noise_vel, cfg.process_noise_vel],
+            dtype=torch.float32, device=device)
+    return torch.diag(noise)
 
 
 def predict(state: TrackerState, t, cfg: TrackerConfig) -> TrackerState:
@@ -137,7 +140,8 @@ def _association_cost(state: TrackerState, obs4, obs_valid,
 def _greedy_associate(cost: torch.Tensor) -> torch.Tensor:
     """Best-first assignment with row/column elimination: per track, the
     matched observation index or -1. A fixed min(T, O) rounds of a masked
-    argmin on the device, with no host sync (the JAX fori_loop)."""
+    argmin on the device (the JAX fori_loop); each round reads its 0-d
+    index on the host."""
     n_trackers, n_obs = cost.shape
     dev = cost.device
     rows = torch.arange(n_trackers, device=dev)
@@ -147,7 +151,9 @@ def _greedy_associate(cost: torch.Tensor) -> torch.Tensor:
     for _ in range(min(n_trackers, n_obs)):
         flat = torch.argmin(c.reshape(-1))
         r, col = flat // n_obs, flat % n_obs
-        found = torch.isfinite(c.reshape(-1)[flat])
+        with profiling.sync_point("tracker_greedy_pick"):
+            picked = c.reshape(-1)[flat]
+        found = torch.isfinite(picked)
         match = torch.where(found & (rows == r), col.to(torch.int32), match)
         c = c.masked_fill(found & ((rows[:, None] == r)
                                    | (cols[None, :] == col)), float("inf"))
@@ -204,8 +210,12 @@ def correct(state: TrackerState, t, detections: MovingObjects,
     # tracks spawned before it in this frame.
     obs_matched = torch.zeros((obs4.shape[0],), dtype=torch.bool,
                               device=dev)
-    obs_matched[midx[matched]] = True
-    spawn_cand = (obs_valid & ~obs_matched).tolist()
+    with profiling.sync_point("tracker_matched_index"):
+        hit = midx[matched]
+    with profiling.sync_point("tracker_matched_mark"):
+        obs_matched[hit] = True
+    with profiling.sync_point("tracker_spawn_candidates"):
+        spawn_cand = (obs_valid & ~obs_matched).tolist()
     mean, cov, active = state.mean.clone(), state.cov.clone(), \
         state.active.clone()
     ids, ccount = state.id.clone(), state.correction_count.clone()
@@ -219,15 +229,19 @@ def correct(state: TrackerState, t, detections: MovingObjects,
         dist = torch.linalg.vector_norm(mean[:, :2] - pos[None, :], dim=1)
         close = (active & (dist < object_radius * 2.0)).any()
         free_slot = torch.argmin(active.to(torch.int32))
-        flags = torch.stack([close, active[free_slot]]).tolist()
+        with profiling.sync_point("tracker_spawn_flags"):
+            flags = torch.stack([close, active[free_slot]]).tolist()
         if flags[0] or flags[1]:
             continue
-        slot = int(free_slot)
+        with profiling.sync_point("tracker_spawn_slot"):
+            slot = int(free_slot)
         mean[slot] = obs4[i]
         cov[slot] = eye * cfg.initial_cov
-        active[slot] = True
+        with profiling.sync_point("tracker_spawn_active"):
+            active[slot] = True
         ids[slot] = next_id
-        ccount[slot] = 0
+        with profiling.sync_point("tracker_spawn_count"):
+            ccount[slot] = 0
         lct[slot] = t
         lpt[slot] = t
         last_obs[slot] = obs_record[i]

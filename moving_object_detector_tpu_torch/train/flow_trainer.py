@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from ..models.pwc_net import PWCNet
 from ..ops import flow_ops
+from ..utils import profiling
 
 # Per-level supervision weights, finest (the level-2 estimate) first: the
 # standard PWC-Net schedule shape.
@@ -185,13 +186,20 @@ def train_step(model: PWCNet, tx: FlowOptimizer, state: FlowTrainState,
                batch: dict, motion_contrast: float = 0.0):
     """One update on ``batch`` = dict(img1, img2, flow), NCHW. Returns the
     state (updated in place) and device scalars {"loss", "epe",
-    "grad_norm"}: nothing here waits for the card."""
-    loss, epe = flow_loss(model, batch["img1"], batch["img2"], batch["flow"],
-                          motion_contrast=motion_contrast)
+    "grad_norm"}: nothing here waits for the card. While a span recorder
+    is active (``utils/profiling.py``) the loss, its gradients and the
+    clip with the update are spans ``forward``, ``backward`` and
+    ``optimizer`` of unit ``state.step``."""
+    profiling.set_unit(state.step)
+    with profiling.span("forward"):
+        loss, epe = flow_loss(model, batch["img1"], batch["img2"],
+                              batch["flow"], motion_contrast=motion_contrast)
     params = list(model.parameters())
-    grads = _grads(loss, params)
-    norm = clip_by_global_norm(grads, tx.max_norm)
-    _apply(state, tx, params, grads)
+    with profiling.span("backward"):
+        grads = _grads(loss, params)
+    with profiling.span("optimizer"):
+        norm = clip_by_global_norm(grads, tx.max_norm)
+        _apply(state, tx, params, grads)
     return state, {"loss": loss.detach(), "epe": epe.detach(),
                    "grad_norm": norm}
 
@@ -300,7 +308,8 @@ def make_chunked_train_step(model: PWCNet, tx: FlowOptimizer,
     ``train.data_synth.generate_batch``: (chunk_fn, state), with
     ``chunk_fn(state) -> (state, metrics)`` and the metrics the chunk's
     means as device scalars, to be read once a chunk. Nothing inside a
-    chunk waits for the card.
+    chunk waits for the card. Each batch's making is span ``batch`` of
+    the step it is for (``utils/profiling.py``).
 
     Batches come from one generator on the net's device seeded with
     ``seed``, drawn on from chunk to chunk. ``pool`` > 0 draws the batch
@@ -324,11 +333,12 @@ def make_chunked_train_step(model: PWCNet, tx: FlowOptimizer,
         for _ in range(chunk):
             if pool > 0:
                 gen.manual_seed((POOL_SEED << 32) + st.step % pool)
-            data = generate_batch(
-                gen, batch, height, width, n_objects, max_shift,
-                bg_max_shift, downsample_frac=downsample_frac,
-                real_frac=real_frac, local_motion_frac=local_motion_frac,
-                channels=model.config.in_channels)
+            with profiling.span("batch", unit=st.step):
+                data = generate_batch(
+                    gen, batch, height, width, n_objects, max_shift,
+                    bg_max_shift, downsample_frac=downsample_frac,
+                    real_frac=real_frac, local_motion_frac=local_motion_frac,
+                    channels=model.config.in_channels)
             st, m = step(st, data, motion_contrast)
             m = torch.stack([m["loss"], m["epe"]])
             sums = m if sums is None else sums + m

@@ -11,6 +11,7 @@ import dataclasses
 import torch
 
 from .config import PipelineConfig
+from .utils import profiling
 
 _INT_FIELDS = ("cluster_size", "correction_count_limit", "neighbor_distance")
 
@@ -56,11 +57,13 @@ class Tunables:
 
     @classmethod
     def from_config(cls, config: PipelineConfig, device=None) -> "Tunables":
-        return cls(**{
-            k: torch.tensor(
-                v, device=device,
-                dtype=torch.int32 if k in _INT_FIELDS else torch.float32)
-            for k, v in cls.config_values(config).items()})
+        values = {}
+        for k, v in cls.config_values(config).items():
+            with profiling.sync_point("tunable_to_device"):  # copied in
+                values[k] = torch.tensor(
+                    v, device=device,
+                    dtype=torch.int32 if k in _INT_FIELDS else torch.float32)
+        return cls(**values)
 
     def replace_values(self, **kw) -> "Tunables":
         """A copy with the given scalars updated (a retune between

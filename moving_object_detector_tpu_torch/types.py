@@ -11,11 +11,14 @@ import dataclasses
 
 import torch
 
+from .utils import profiling
+
 
 def _f32(v, device=None) -> torch.Tensor:
     if isinstance(v, torch.Tensor):
         return v.to(device=device or v.device, dtype=torch.float32)
-    return torch.tensor(v, dtype=torch.float32, device=device)
+    with profiling.sync_point("scalar_to_device"):
+        return torch.tensor(v, dtype=torch.float32, device=device)
 
 
 class _Replace:

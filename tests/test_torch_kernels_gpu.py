@@ -7,6 +7,8 @@ none; the repository's conftest imports JAX, so skip it there:
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py
 """
 
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -1231,3 +1233,83 @@ def test_spatial_step_on_one_nccl_rank_equals_the_unsharded_step(cuda):
                 assert torch.equal(getattr(out, f), getattr(ref, f)), (k, f)
     finally:
         dist.destroy_process_group()
+
+
+def _patch_frames(n, h=376, w=1242):
+    """Pairs of known disparity strips (real textures) with two patches
+    moving 12 px a frame, far apart, so the clusterer takes its
+    two-window branch: busy pairs."""
+    import os
+
+    tex = np.load(os.path.join(os.path.dirname(__file__), "fixtures",
+                               "real_textures.npz"))
+    bg = np.concatenate([tex["china"][:h], tex["flower"][:h]],
+                        axis=1)[:, :w].astype(np.float32) / 255.0
+    right_bg = np.empty_like(bg)
+    for x0, x1, d in ((0, 300, 24), (300, 640, 14), (640, 950, 30),
+                      (950, w, 18)):
+        right_bg[:, x0:x1] = np.roll(bg, -d, axis=1)[:, x0:x1]
+    patches = [(tex["hopper"][100:220, 100:300], 360, 44),
+               (tex["hopper"][240:360, 300:500], 990, 36)]
+    frames = []
+    for k in range(n):
+        left, right = bg.copy(), right_bg.copy()
+        for img, x0, d in patches:
+            x = x0 + 12 * k - (12 * n if x0 > 900 else 0)
+            img = img.astype(np.float32) / 255.0
+            left[140:260, x:x + 200] = img
+            right[140:260, x - d:x - d + 200] = img
+        frames.append((left, right))
+    return frames
+
+
+def test_every_sync_of_a_busy_pair_is_named(cuda):
+    """A busy serving pair (pwc_v7, 376 x 1242, flow and SGM at scale 2,
+    two windows of detections) with the card's sync check set to raise
+    everywhere but inside ``profiling.sync_point``: every host wait of
+    the step is a named site, and the ``syncs`` counter counts them."""
+    import os
+
+    from moving_object_detector_tpu_torch import config as cfgmod
+    from moving_object_detector_tpu_torch.pipeline import (
+        PipelineState,
+        detect_step,
+    )
+    from moving_object_detector_tpu_torch.types import StereoModel
+    from moving_object_detector_tpu_torch.utils import profiling
+    from moving_object_detector_tpu_torch.utils.checkpoint import (
+        load_flow_checkpoint,
+    )
+
+    h, w, fx = 376, 1242, 721.5
+    config = cfgmod.PipelineConfig(height=h, width=w, flow_input_scale=2,
+                                   sgm_input_scale=2)
+    model, fcfg = load_flow_checkpoint(
+        os.path.join(os.path.dirname(os.path.dirname(__file__)), "weights",
+                     "pwc_v7.fp16.npz"), cfgmod.FlowNetConfig(), device=cuda)
+    config = config.replace(flownet=fcfg)
+    stereo = StereoModel.create(fx=fx, fy=fx, cx=w / 2.0, cy=h / 2.0,
+                                baseline=0.54, device=cuda)
+    frames = [(torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda))
+              for a, b in _patch_frames(6)]
+    state = PipelineState.create(config, device=cuda)
+    for k, (left, right) in enumerate(frames[:-1]):
+        state, _ = detect_step(model, state, left, right, 0.1 * k, stereo,
+                               config)
+    torch.cuda.synchronize()
+    left, right = frames[-1]
+    with profiling.recording() as rec:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, out = detect_step(model, state, left, right, 0.5, stereo,
+                                     config)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert int(out.detections.valid.sum()) >= 2
+    syncs = [s.name for s in rec.spans()
+             if s.name.startswith(profiling.SYNC_PREFIX)]
+    assert rec.counters[("syncs", 5)] == len(syncs)
+    assert {"sync.clusterer_windows", "sync.tracker_greedy_pick",
+            "sync.tracker_spawn_candidates"} <= set(syncs)
+    print(f"syncs of the busy pair: {len(syncs)}: "
+          f"{sorted(collections.Counter(syncs).items())}")

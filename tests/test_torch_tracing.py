@@ -1,0 +1,473 @@
+"""The port's span recorder (``utils/profiling.py``) on the CPU: how the
+runner's, the step's and the trainer's spans nest, the sync sites of a
+busy and a quiet pair, that recording changes no output, that the spans
+land on a ``torch.profiler`` trace's clock, and the ring's drop count.
+
+The pairs are ``tests/test_torch_runner.py``'s: the CLI's ``tiny``
+preset at 64 x 128 with the moving block's true flow in place of the
+net's (busy), and the same block standing still with no flow (quiet).
+The port alone: no JAX.
+"""
+
+import collections
+import dataclasses
+import io
+import json
+import statistics
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from moving_object_detector_tpu_torch import config as tcfg
+from moving_object_detector_tpu_torch import pipeline
+from moving_object_detector_tpu_torch import run as trun
+from moving_object_detector_tpu_torch.io import readers
+from moving_object_detector_tpu_torch.io.frame_ring import (
+    FrameRing,
+    native_available,
+)
+from moving_object_detector_tpu_torch.io.runner import PipelineRunner
+from moving_object_detector_tpu_torch.models.pwc_net import PWCNet
+from moving_object_detector_tpu_torch.pipeline import PipelineState
+from moving_object_detector_tpu_torch.train import flow_trainer
+from moving_object_detector_tpu_torch.types import StereoModel
+from moving_object_detector_tpu_torch.utils import profiling
+
+torch.set_num_threads(2)
+
+H, W, FX, BASE = 64, 128, 100.0, 0.48
+STAGES = ("sgm", "flow", "egomotion", "scene_flow", "clusterer", "tracker")
+LOOP = ("ring", "ring_pop", "dispatch", "pending", "harvest")
+# The sync sites of pair 1 of each sequence on the CPU path of CONFIG
+# (PERF.md lists them with the card's): the plain RANSAC's transforms
+# and the plain CC's rounds wait for the card too where they run on it.
+# The busy pair spawns a track from its one detection.
+QUIET_SITES = {
+    "step_time": 1, "scalar_to_device": 2, "egomotion_lk_fallback": 1,
+    "se3_bottom_row": 23, "clusterer_extent": 1, "tracker_frame_valid": 1,
+    "tracker_process_noise": 1, "tracker_greedy_pick": 4,
+    "tracker_matched_index": 1, "tracker_matched_mark": 1,
+    "tracker_spawn_candidates": 1,
+}
+BUSY_SITES = dict(QUIET_SITES, cc_converged=4, tracker_spawn_flags=1,
+                  tracker_spawn_slot=1, tracker_spawn_active=1,
+                  tracker_spawn_count=1)
+
+
+def _config():
+    """``tests/test_torch_runner.py``'s detecting configuration."""
+    m = tcfg
+    return m.PipelineConfig(
+        height=H, width=W,
+        flownet=m.FlowNetConfig(feature_channels=(8, 16, 32), search_range=2,
+                                use_context_net=False, dtype="float32"),
+        scene_flow=m.SceneFlowConfig(dynamic_flow_diff=2.0),
+        clusterer=m.ClustererConfig(cluster_size=100, depth_diff=0.3,
+                                    neighbor_distance=2, max_objects=4),
+        tracker=m.TrackerConfig(max_tracks=8),
+        sgm=m.SGMConfig(max_disparity=32, backend="xla"),
+        egomotion=m.EgoMotionConfig(max_features=128, nms_radius=2,
+                                    ransac_hypotheses=32,
+                                    lk_pyramid_levels=2, min_inliers=8))
+
+
+CONFIG = _config()
+
+
+def _stereo():
+    return StereoModel.create(fx=FX, fy=FX, cx=W / 2, cy=H / 2,
+                              baseline=BASE, device="cpu")
+
+
+def _pairs(n, speed):
+    full = readers.SyntheticStereoSequence(
+        height=H, width=W, fx=FX, baseline=BASE, z_bg=8.0, z_obj=4.0,
+        obj_size=(24, 30), obj_speed_px=speed, n_frames=n)
+    return [full.frame(k)[:3] for k in range(n)]
+
+
+def _true_flow(t, speed):
+    """The block's true flow at time t: ``speed`` px a frame inside its
+    box, none elsewhere or on the first frame."""
+    k = int(round(t * 10.0))
+    flow = np.zeros((H, W, 2), np.float32)
+    if k and speed:
+        x = W // 6 + int(speed) * k
+        flow[H // 3:H // 3 + 24, x:x + 30, 0] = float(speed)
+    return flow
+
+
+@pytest.fixture
+def true_flow(monkeypatch):
+    """``detect_step`` given the block's true flow (busy at 5 px a frame,
+    quiet at 0)."""
+    real = pipeline.detect_step
+    speed = {"px": 5.0}
+
+    def step(model, state, left, right, t, *a, **kw):
+        kw["flow_override"] = torch.from_numpy(_true_flow(float(t),
+                                                          speed["px"]))
+        return real(model, state, left, right, t, *a, **kw)
+
+    monkeypatch.setattr(pipeline, "detect_step", step)
+    return speed
+
+
+def _run(n=5, speed=5.0, recorder=None):
+    runner = PipelineRunner(CONFIG, _stereo(), device="cpu")
+    if recorder is None:
+        return runner, runner.run(_pairs(n, speed))
+    with profiling.recording(recorder):
+        return runner, runner.run(_pairs(n, speed))
+
+
+def _sites(spans, unit):
+    return dict(collections.Counter(
+        s.name[len(profiling.SYNC_PREFIX):] for s in spans
+        if s.unit == unit and s.name.startswith(profiling.SYNC_PREFIX)))
+
+
+def test_spans_nest_and_the_stages_fit_inside_dispatch(true_flow):
+    rec = profiling.SpanRecorder()
+    _, results = _run(recorder=rec)
+    assert sum(r.n_detections for r in results) >= 3
+    spans = rec.spans()
+    for unit in range(5):
+        mine = {s.name: (i, s) for i, s in enumerate(spans)
+                if s.unit == unit and not s.name.startswith("sync.")}
+        assert set(mine) == set(STAGES) | set(LOOP), unit
+        d_idx, disp = mine["dispatch"]
+        for name in LOOP:
+            assert mine[name][1].parent == -1
+            assert not mine[name][1].annotated
+        for name in STAGES:
+            s = mine[name][1]
+            assert s.parent == d_idx
+            assert disp.start <= s.start <= s.end <= disp.end
+        for s in spans:
+            if s.unit == unit and s.name.startswith("sync."):
+                parent = spans[s.parent].name
+                assert parent in STAGES or parent == "dispatch", s
+                assert spans[s.parent].start <= s.start <= s.end \
+                    <= spans[s.parent].end
+        own = sum(profiling.per_unit_ms(spans, n, self_time=True)[unit]
+                  for n in STAGES)
+        assert own + profiling.sync_ms(spans)[unit] <= \
+            profiling.per_unit_ms(spans, "dispatch")[unit]
+        # Loop order: push, pop, dispatch, then (after the next pair's
+        # dispatch) pending and harvest.
+        ring, pop = mine["ring"][1], mine["ring_pop"][1]
+        pend, harv = mine["pending"][1], mine["harvest"][1]
+        assert ring.start <= ring.end <= disp.start
+        assert pop.end <= disp.start
+        assert pend.start >= disp.end and pend.end <= harv.start
+    assert rec.lost == 0
+
+
+@pytest.mark.parametrize("speed,expected", [(5.0, BUSY_SITES),
+                                            (0.0, QUIET_SITES)],
+                         ids=["busy", "quiet"])
+def test_syncs_per_pair_are_the_listed_sites(true_flow, speed, expected):
+    true_flow["px"] = speed
+    rec = profiling.SpanRecorder()
+    _, results = _run(speed=speed, recorder=rec)
+    assert (results[1].n_detections > 0) == (speed > 0)
+    spans = rec.spans()
+    assert _sites(spans, 1) == expected
+    for unit in range(5):
+        assert rec.counters[("syncs", unit)] == sum(
+            _sites(spans, unit).values())
+
+
+def _tensors(tree):
+    out = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            out.append(x)
+        elif dataclasses.is_dataclass(x):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name))
+        elif isinstance(x, (tuple, list)):
+            for v in x:
+                walk(v)
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+    walk(tree)
+    return out
+
+
+def _steps(pairs, speed):
+    state = PipelineState.create(CONFIG, device="cpu")
+    outs = []
+    for left, right, t in pairs:
+        state, out = pipeline.detect_step(
+            None, state, torch.from_numpy(left), torch.from_numpy(right), t,
+            _stereo(), CONFIG,
+            flow_override=torch.from_numpy(_true_flow(t, speed)))
+        outs.append((state, out))
+    return outs
+
+
+def test_spans_off_record_nothing_and_on_change_no_output():
+    pairs = _pairs(3, 5.0)
+    idle = profiling.SpanRecorder()
+    assert profiling.active() is None
+    off = _steps(pairs, 5.0)
+    assert idle.n == 0 and not idle.counters
+    with profiling.recording() as rec:
+        on = _steps(pairs, 5.0)
+    assert profiling.active() is None
+    assert rec.n > 0 and rec.counters[("syncs", 2)] > 0
+    a, b = _tensors(off), _tensors(on)
+    assert len(a) == len(b) > 0
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert x.numpy().tobytes() == y.numpy().tobytes()
+    assert [s.frame_index for s, _ in on] == [1, 2, 3]
+
+
+def _range_misses_ns(tmp_path, pairs):
+    """Profile the pairs with spans on: (spans, |range - span| of each
+    span's start and end in ns after the median offset)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profiling.recording() as rec:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            _steps(pairs, 5.0)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    spans = rec.spans()
+    off = profiling.trace_offset_ns(spans, trace)
+    assert off is not None
+    ranges = collections.defaultdict(list)
+    for e in trace["traceEvents"]:
+        if e.get("cat") == "user_annotation" and e.get("ph") == "X" \
+                and e["name"] != "profiling.warm_up":
+            ranges[e["name"]].append((e["ts"] * 1e3,
+                                      (e["ts"] + e["dur"]) * 1e3))
+    mine = collections.defaultdict(list)
+    for s in spans:
+        assert s.annotated
+        mine[s.name].append(s)
+    assert set(mine) == set(ranges) and set(STAGES) <= set(mine)
+    misses = []
+    for name, ss in mine.items():
+        assert len(ss) == len(ranges[name])
+        for s, (a, b) in zip(ss, sorted(ranges[name])):
+            misses += [abs(a - (s.start + off)), abs(b - (s.end + off))]
+    return spans, misses
+
+
+def test_record_function_ranges_land_on_the_spans(tmp_path):
+    """Under a CPU profiler each span inside the step opens a range of
+    its name; mapped by the median offset, every range starts and ends
+    within 50 us of its span. The host may be taken from the process
+    between a range's clock and the span's, so of three profiled runs
+    one has to hold for every span, and each its median within 25 us.
+    Without a recorder, no range."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pairs = _pairs(2, 5.0)
+    with profile(activities=[ProfilerActivity.CPU]) as bare:
+        _steps(pairs, 5.0)
+    names = {e.name for e in bare.events()}
+    assert not names & set(STAGES)
+    assert not any(n.startswith(profiling.SYNC_PREFIX) for n in names)
+    worst = []
+    for _ in range(3):
+        spans, misses = _range_misses_ns(tmp_path, pairs)
+        assert statistics.median(misses) < 25e3
+        worst.append(max(misses))
+        if worst[-1] < 50e3:
+            break
+    assert min(worst) < 50e3, worst
+
+
+def test_device_time_goes_to_the_span_around_each_launch():
+    """A hand-made trace (times in us): launches matched to their device
+    operations by correlation id, whatever the kernel's name, each idle
+    gap put down to the innermost span around its midpoint, and both in
+    the report."""
+    S = profiling.Span
+    K = 1000  # ns an us
+    spans = [S("dispatch", 0, 1000 * K, -1, 7, False),
+             S("sgm", 100 * K, 400 * K, 0, 7, True),
+             S("sync.x", 300 * K, 380 * K, 1, 7, True),
+             S("flow", 500 * K, 900 * K, 0, 7, True),
+             # The next pair's time in the ring overlaps flow: not nested.
+             S("ring", 600 * K, 1200 * K, -1, 8, False)]
+    off = 10_000 * K  # the trace's clock is the spans' + 10 ms
+
+    def us(ns):
+        return (ns + off) / K
+
+    ev = [{"ph": "X", "cat": "user_annotation", "name": s.name,
+           "ts": us(s.start), "dur": (s.end - s.start) / K}
+          for s in spans if s.annotated]
+    launches = [(150, 1, 410, 440), (320, 2, 450, 470), (600, 3, 480, 700),
+                (950, 4, 900, 960)]
+    for host, corr, a, b in launches:
+        ev.append({"ph": "X", "cat": "cuda_runtime", "name": "launch",
+                   "ts": us(host * K), "dur": 5,
+                   "args": {"correlation": corr}})
+        ev.append({"ph": "X", "cat": "kernel", "name": f"k{corr % 2}",
+                   "ts": us(a * K), "dur": b - a,
+                   "args": {"correlation": corr}})
+    trace = {"traceEvents": ev}
+    assert profiling.trace_offset_ns(spans, trace) == off
+    dev = profiling.device_ms_by_span(spans, trace, off)
+    assert dev[("sgm", 7)] == pytest.approx(0.050)
+    assert dev[("sync.x", 7)] == pytest.approx(0.020)
+    assert dev[("flow", 7)] == pytest.approx(0.220)
+    assert dev[("dispatch", 7)] == pytest.approx(0.330)
+    # Gaps 440-450 and 470-480 (dispatch, between sgm and flow) and
+    # 700-900 (flow, nested deeper than the ring's span begun later).
+    idle = profiling.idle_by_span(spans, trace, off)
+    assert idle == pytest.approx({"dispatch": 20e-6, "flow": 200e-6})
+    rec = profiling.SpanRecorder()
+    rec.spans = lambda: spans
+    rows = profiling.report(rec, trace).splitlines()
+    assert rows[0].split()[-1] == "device"
+    flow = next(r for r in rows if r.startswith("flow "))
+    assert flow.split()[1:] == ["1", "0.400", "0.400", "1.00", "0.220"]
+    assert rows[-1] == "device idle s by span: flow 0.0002, dispatch 0.0000"
+
+
+def test_train_step_and_chunk_record_their_spans():
+    torch.manual_seed(0)
+    model = PWCNet(tcfg.FlowNetConfig(feature_channels=(8, 16, 32),
+                                      search_range=2, use_context_net=False,
+                                      dtype="float32"))
+    state, tx = flow_trainer.create_train_state(model)
+    fn, state = flow_trainer.make_chunked_train_step(model, tx, state, 32,
+                                                     64, 2, 3)
+    with profiling.recording() as rec:
+        state, _ = fn(state)
+    by_unit = collections.defaultdict(list)
+    for s in rec.spans():
+        by_unit[s.unit].append(s.name)
+    assert dict(by_unit) == {u: ["batch", "forward", "backward", "optimizer"]
+                             for u in range(3)}
+    assert state.step == 3
+
+
+def _frame(i):
+    return np.full((4, 4), float(i), np.float32)
+
+
+def _ring(force_python, **kw):
+    if not force_python and not native_available():
+        pytest.skip("native runtime library not loadable here")
+    return FrameRing(height=4, width=4, force_python=force_python, **kw)
+
+
+@pytest.mark.parametrize("force_python", [True, False])
+def test_the_ring_counts_its_drops_and_stamps_its_pushes(force_python):
+    ring = _ring(force_python, capacity=2, drop_oldest=True)
+    t0 = time.perf_counter_ns()
+    for i in range(5):
+        assert ring.push(_frame(i), _frame(i), float(i), timeout=0.1)
+    assert ring.dropped() == 3
+    got = []
+    while (item := ring.pop(timeout=0.05)) is not None:
+        got.append((item[2], ring.pushed_ns))
+    assert [t for t, _ in got] == [3.0, 4.0]
+    stamps = [ns for _, ns in got]
+    assert t0 <= stamps[0] <= stamps[1] <= time.perf_counter_ns()
+    blocking = _ring(force_python, capacity=2)
+    assert blocking.push(_frame(0), _frame(0), 0.0, timeout=0.1)
+    assert blocking.push(_frame(1), _frame(1), 1.0, timeout=0.1)
+    assert not blocking.push(_frame(2), _frame(2), 2.0, timeout=0.05)
+    assert blocking.dropped() == 0
+    ring.close()
+    blocking.close()
+
+
+@pytest.mark.parametrize("force_python", [True, False])
+def test_the_runner_counts_each_runs_drops(true_flow, monkeypatch,
+                                           force_python):
+    """A ring of one that drops the oldest, fed faster than a slowed step
+    takes pairs: every pair is harvested or dropped, and each run counts
+    its own drops (the ring's count goes on across runs)."""
+    if not force_python and not native_available():
+        pytest.skip("native runtime library not loadable here")
+    real = pipeline.detect_step
+
+    def slow(*a, **kw):
+        time.sleep(0.02)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(pipeline, "detect_step", slow)
+    runner = PipelineRunner(CONFIG, _stereo(), ring_capacity=1,
+                            drop_oldest=True, device="cpu")
+    runner.ring = FrameRing(H, W, capacity=1, drop_oldest=True,
+                            force_python=force_python)
+    pairs = _pairs(12, 5.0)
+    seen = []
+    for run in range(2):
+        before = runner.ring.dropped()
+        with profiling.recording() as rec:
+            results = runner.run(pairs if run == 0 else
+                                 [(a, b, t + 10.0) for a, b, t in pairs])
+        drops = runner.ring_drops
+        assert drops == runner.ring.dropped() - before
+        assert len(results) + drops == len(pairs)
+        first = results[0].index
+        assert rec.counters[("ring_drops", first)] == drops
+        seen.append(drops)
+    assert sum(seen) == runner.ring.dropped() and sum(seen) > 0
+
+
+def test_the_cli_reports_and_traces_the_spans(tmp_path):
+    err = io.StringIO()
+    out = io.StringIO()
+    import contextlib
+
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = trun.main(["--source", "synthetic", "--frames", "3",
+                        "--preset", "tiny", "--height", "64", "--width",
+                        "128", "--fx", "100", "--report", "--trace-dir",
+                        str(tmp_path)], device="cpu")
+    assert rc == 0
+    rows = err.getvalue()
+    for name in STAGES + ("dispatch", "pending", "sync.step_time",
+                          "counter syncs"):
+        assert f"\n{name} " in rows, name
+    trace = json.loads((tmp_path / "trace.json").read_text())
+    mine = [e for e in trace["traceEvents"] if e.get("cat") == "span"]
+    assert {e["name"] for e in mine} >= set(STAGES) | {"dispatch", "ring"}
+    ranges = {e["name"]: e["ts"] for e in trace["traceEvents"]
+              if e.get("cat") == "user_annotation"}
+    sgm = min(e["ts"] for e in mine if e["name"] == "sgm")
+    assert abs(sgm - min(e["ts"] for e in trace["traceEvents"]
+                         if e.get("cat") == "user_annotation"
+                         and e["name"] == "sgm")) < 50
+    assert "sgm" in ranges
+
+
+def test_span_sites_are_inert_without_a_recorder():
+    assert profiling.active() is None
+    with profiling.span("x") as a, profiling.sync_point("y") as b:
+        profiling.set_unit(3)
+        profiling.add("z", 5)
+        assert a is None and b is None
+    assert profiling.clock_ns() == 0
+    timer = profiling.StageTimer()
+    with timer.stage("dispatch", unit=4):
+        pass
+    assert len(timer.samples["dispatch"]) == 1
+
+
+def test_a_full_recorder_counts_what_it_drops():
+    rec = profiling.SpanRecorder(capacity=3)
+    with profiling.recording(rec):
+        for k in range(5):
+            with profiling.span("s", unit=k):
+                pass
+    assert rec.n == 3 and rec.lost == 2
+    assert [s.unit for s in rec.spans()] == [0, 1, 2]
