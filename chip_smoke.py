@@ -71,7 +71,10 @@
    census kernel once (both views), each SGM v2 kernel once, the
    correlation four times, the RANSAC kernel once (twice on a frame that
    takes the LK fallback), the Gauss-Newton kernel and the plain census
-   never. Prints
+   never (a replayed flow graph launches its correlations between its
+   segments). The flow stage's CUDA graphs must give the eager flow bit
+   for bit on two pairs, and the profiler must see four correlation
+   kernels a replay (``check_flow_graph``). Prints
    ms/frame, pairs/s and per-stage ms.
 4. Runs the same frames with the gather, CC and stats in their plain
    forms and requires identical detections, label images and overflow;
@@ -175,7 +178,8 @@
    scale-2 flow (median |diff| < 0.25 px from frame 1: pwc_v7's own
    striping error, ``TOL_SPATIAL_FLOW``), the patch be
    detected, and the census, SGM v2 and correlation kernels launch on
-   each rank. A rank's failure fails the script.
+   each rank; the flow graphs of the stripe's shape give the eager flow
+   bit for bit with four correlation kernels a replay. A rank's failure fails the script.
 13. The same step over a world of one NCCL rank (this process; device
    tensors through the all-gather) with no halo, bit for bit the
    unsharded step fed the full-resolution SGM and the scale-2 flow.
@@ -1752,6 +1756,45 @@ V1_ONLY_KERNELS = V1_KERNELS[1:]  # the census kernel serves both paths
 V2_SGM_KERNELS = ("sgm_vertical", "sgm_horizontal", "sgm_wta")
 
 
+def check_flow_graph(model, config, prev, now, what: str) -> None:
+    """The flow stage's CUDA graphs at one shape: ``_flow_forward`` on two
+    pairs (the capture's eager run or a replay, then a replay), each
+    bitwise ``_flow_eager`` and a correlation launch a level; then three
+    replays under the profiler, which must hold a correlation kernel a
+    level and a replay."""
+    from moving_object_detector_tpu_torch import pipeline
+    from moving_object_detector_tpu_torch.ops import flow_corr_cuda
+
+    scale, backend = config.flow_input_scale, config.flownet.corr_backend
+
+    def flow(a, b):
+        return pipeline._flow_forward(model, a, b, input_scale=scale,
+                                      corr_backend=backend)
+
+    for a, b in ((prev, now), (now, prev)):
+        before = flow_corr_cuda.LAUNCHES["corr"]
+        got = flow(a, b)
+        n = flow_corr_cuda.LAUNCHES["corr"] - before
+        want = pipeline._flow_eager(model, a, b, scale, backend)
+        if not torch.equal(got, want) or n != len(CORR_LEVELS):
+            raise AssertionError(
+                f"flow graph at {what}: max |diff| against the eager flow "
+                f"{float((got - want).abs().max())}, {n} corr launches")
+    if pipeline._flow_key(model, prev, now, scale,
+                          backend) not in pipeline._flow_graphs:
+        raise AssertionError(f"flow graph at {what}: no graph captured")
+    reps = 3
+    on_card = sum(n for name, n in device_kernels(
+        lambda: flow(prev, now), reps).items() if "corr_kernel" in name)
+    if on_card != reps * len(CORR_LEVELS):
+        raise AssertionError(f"flow graph at {what}: the profiler saw "
+                             f"{on_card} corr kernels in {reps} replays")
+    log(f"flow graph at {what} ({tuple(prev.shape)}, scale {scale}): "
+        f"bitwise the eager flow on two pairs, {len(CORR_LEVELS)} corr "
+        f"launches a call, {on_card} corr kernels on the card in {reps} "
+        f"replays; {len(pipeline._flow_graphs)} graphs held in the process")
+
+
 def check_gauss_newton_per_frame(per_frame, what: str) -> None:
     """One RANSAC kernel launch on a frame that keeps the dense flow, two
     on a frame that takes the LK fallback (the RANSAC runs again on the LK
@@ -2002,6 +2045,8 @@ def run_checks_and_paths(dev, report) -> None:
             raise AssertionError(f"{name} launched {launches[name]} times, "
                                  f"under once a frame ({floor})")
     check_outputs(outs, frames, lambda o: o.capacity)
+    check_flow_graph(model, config, *(torch.from_numpy(f[0]).to(dev)
+                                      for f in frames[:2]), "serving")
     dets = [int(o.detections.valid.sum()) for o in outs]
     tracks = [int(o.tracked.objects.valid.sum()) for o in outs]
     med = statistics.median(step_ms[1:])
@@ -3455,6 +3500,9 @@ def run_spatial(model, config, stereo, dev) -> None:
     dets = ranks[0]["valid"].sum(axis=1).tolist()
     if not any(dets[1:]):
         raise AssertionError("spatial: the moving patch was never detected")
+    check_flow_graph(model, config, *(
+        torch.from_numpy(stripe(f[0], 0, FLOW_HALO)).to(dev)
+        for f in frames[:2]), "the spatial stripe")
     counts = [json.loads(str(r["counts"])) for r in ranks]
     n = SPATIAL_FRAMES
     for r, c in enumerate(counts):

@@ -23,6 +23,11 @@ from .. import _build
 from . import flow_ops
 
 LAUNCHES = {"corr": 0, "corr_backward": 0}
+# While the flow stage's CUDA graphs are captured (``pipeline._Cuts``):
+# called by ``corr_forward`` on the capturing stream in place of its
+# launch, it ends the current graph and returns the buffer that the
+# replay's launch fills.
+capture_cut = None
 MAX_GRID = 65535  # blocks along a grid's second and third dimension
 _typed = set()
 
@@ -144,16 +149,27 @@ def _kernel_inputs(f1: torch.Tensor, f2: torch.Tensor, search_range: int,
 
 
 def corr_forward(f1: torch.Tensor, f2: torch.Tensor,
-                 search_range: int = 4) -> torch.Tensor:
+                 search_range: int = 4,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
     """(B, C, H, W) f32 pair -> (B, (2r+1)^2, H, W) f32 mean-channel local
-    cost volume, dy-major offsets, zero outside the image. The kernel on
-    CUDA tensors, the plain version on CPU tensors."""
+    cost volume, dy-major offsets, zero outside the image, written into
+    ``out`` where given. The kernel on CUDA tensors, the plain version on
+    CPU tensors."""
     if f1.device.type == "cpu" and f2.device.type == "cpu":
-        return flow_ops.correlation(f1, f2, search_range)
+        corr = flow_ops.correlation(f1, f2, search_range)
+        return corr if out is None else out.copy_(corr)
     f1, f2 = _kernel_inputs(f1, f2, search_range)
+    if capture_cut is not None and torch.cuda.is_current_stream_capturing():
+        return capture_cut(f1, f2, search_range)
     b, c, h, w = f1.shape
-    k = (2 * search_range + 1) ** 2
-    out = torch.empty((b, k, h, w), dtype=torch.float32, device=f1.device)
+    shape = (b, (2 * search_range + 1) ** 2, h, w)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=f1.device)
+    elif (tuple(out.shape) != shape or out.dtype != torch.float32
+          or out.device != f1.device or not out.is_contiguous()):
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype} on "
+                         f"{out.device}: the kernel writes a contiguous "
+                         f"{shape} f32 on {f1.device}")
     rc = _lib("corr").corr_forward(f1.data_ptr(), f2.data_ptr(),
                                    out.data_ptr(), b, c, h, w, search_range,
                                    torch.cuda.current_stream().cuda_stream)

@@ -13,9 +13,15 @@ uses the same code with an unwidened kernel.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
+
+# While ``holding`` runs: every weight matrix a resize read. A CUDA graph
+# captured meanwhile reads them by address, so it keeps them alive past
+# their eviction from ``weight_matrix``'s cache.
+_held: list | None = None
 
 
 @functools.lru_cache(maxsize=64)
@@ -43,6 +49,18 @@ def weight_matrix(in_size: int, out_size: int, device=None) -> torch.Tensor:
     return weights.to(device)
 
 
+@contextlib.contextmanager
+def holding():
+    """Collect into the list it yields every weight matrix the resizes
+    inside the block read."""
+    global _held
+    prev, _held = _held, []
+    try:
+        yield _held
+    finally:
+        _held = prev
+
+
 def resize_bilinear_hw(x: torch.Tensor, size, h_dim: int = 0) -> torch.Tensor:
     """Resize the two spatial axes ``h_dim`` and ``h_dim + 1`` of ``x`` to
     ``size`` = (H', W'). Axes whose size does not change are skipped, as
@@ -53,7 +71,10 @@ def resize_bilinear_hw(x: torch.Tensor, size, h_dim: int = 0) -> torch.Tensor:
         m = out.shape[axis]
         if m == n:
             continue
-        wmat = weight_matrix(m, n, x.device).to(x.dtype)
+        wmat = weight_matrix(m, n, x.device)
+        if _held is not None:
+            _held.append(wmat)
+        wmat = wmat.to(x.dtype)
         out = torch.movedim(
             torch.tensordot(torch.movedim(out, axis, -1), wmat, dims=1),
             -1, axis,

@@ -6,12 +6,15 @@
 SGM disparity, PWC-Net flow, dense-flow ego-motion, scene flow,
 clustering and Kalman tracking for one stereo pair. PyTorch runs eagerly;
 the JAX ``lax.cond``s become Python branches on flags fetched from the
-device. The state lives on the device of ``PipelineState.create``, which
-is ``cuda`` unless the caller passes ``device="cpu"``.
+device. The flow stage, which fetches nothing, replays CUDA graphs on
+the card, its correlations launched between them (``_flow_forward``). The state lives on the device of
+``PipelineState.create``, which is ``cuda`` unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import torch
@@ -21,7 +24,7 @@ from . import resolve_device
 from .clusterer import cluster_scene_flow
 from .config import PipelineConfig
 from .egomotion import estimate_motion
-from .ops import geometry, resolve_backend
+from .ops import flow_corr_cuda, geometry, resize, resolve_backend
 from .ops.resize import resize_image
 from .ops.sgm import compute_disparity, disparity_with_metadata, \
     sgm_disparity_raw
@@ -150,8 +153,8 @@ def edge_aware_flow_upsample(flow_s, out_hw, scale: int,
     return torch.where(smooth, up_b, up_n) * float(scale)
 
 
-def _flow_forward(flow_model, prev_img, now_img, input_scale: int = 1,
-                  corr_backend: str | None = None):
+def _flow_eager(flow_model, prev_img, now_img, input_scale: int = 1,
+                corr_backend: str | None = None):
     """Run the flow net on edge-padded inputs: (H, W, 2) flow.
     ``corr_backend`` overrides the net's own ``config.corr_backend``."""
     c = getattr(flow_model.config, "in_channels", 1)
@@ -177,6 +180,175 @@ def _flow_forward(flow_model, prev_img, now_img, input_scale: int = 1,
     if input_scale > 1:
         flow = edge_aware_flow_upsample(flow, (h0, w0), input_scale)
     return flow
+
+
+# Flow graphs this process holds, one a signature. A graph is never
+# freed: with torch 2.11 and CUDA 12.8 on an H100, a graph destroyed and
+# another captured after it make the next replay of an older graph crash
+# under torch.profiler, once a profiler has run before those captures.
+# Signatures past the bound run eagerly.
+FLOW_GRAPHS = 8
+_flow_graphs: dict = {}
+
+
+class _FlowGraph:
+    """``_flow_eager`` at one input signature, captured into CUDA graphs
+    and replayed. The capture is cut at each correlation (``_Cuts``): a
+    replay runs the segments in turn and launches the hand-written
+    correlation between them through ``flow_corr_cuda.corr_forward``,
+    which counts it, into the buffer the next segment reads. The graphs
+    run a copy of the net, whose parameters a replay copies in from the
+    caller's, so every net of one configuration shares the graphs and each
+    replay reads its caller's values. The two images are copied into
+    static buffers; a replay returns a copy of the graphs' output, so a
+    later replay leaves it be.
+
+    ``capture`` first runs the flow eagerly on a side stream (which builds
+    what is made lazily: the resize matrices, the correlation library,
+    cuDNN's plans) and returns that run's flow with the graph; the graph
+    holds the resize matrices it reads by address."""
+
+    def __init__(self, segments, corrs, net, prev, now, out, held):
+        """``segments``: the graphs, one more than ``corrs``, the
+        correlations' (f1, f2, search range, output) between them;
+        ``net``: the copy the graphs run."""
+        self.segments, self.corrs = segments, corrs
+        self.prev, self.now, self.out, self.held = prev, now, out, held
+        self.params = list(net.parameters())
+
+    @classmethod
+    def capture(cls, flow_model, prev_img, now_img, input_scale,
+                corr_backend):
+        """(graph, flow): ``_flow_eager`` captured on a copy of the net,
+        and its eager flow."""
+        net = copy.deepcopy(flow_model)
+
+        def run(a, b):
+            return _flow_eager(net, a, b, input_scale, corr_backend)
+
+        dev = prev_img.device
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        prev, now = prev_img.clone(), now_img.clone()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            first = run(prev, now)
+        cur.wait_stream(side)
+        first.record_stream(cur)
+        cuts = _Cuts()
+        with resize.holding() as held, \
+                profiling.sync_point("flow_graph_capture"):
+            torch.cuda.synchronize(dev)
+            with torch.cuda.stream(side):
+                out = cuts.capture(run, prev, now)
+        return cls(cuts.segments, cuts.corrs, net, prev, now, out,
+                   held), first
+
+    def __call__(self, flow_model, prev_img, now_img):
+        with torch.no_grad():
+            torch._foreach_copy_(self.params, list(flow_model.parameters()))
+        self.prev.copy_(prev_img)
+        self.now.copy_(now_img)
+        for segment, (f1, f2, search_range, out) in zip(self.segments,
+                                                        self.corrs):
+            segment.replay()
+            flow_corr_cuda.corr_forward(f1, f2, search_range, out=out)
+        self.segments[-1].replay()
+        return self.out.clone()
+
+
+class _Cuts:
+    """A function captured into CUDA graphs of one memory pool, cut at
+    each correlation: while ``capture`` runs, ``corr_forward`` calls
+    ``cut`` in place of its launch, which ends the current graph, keeps
+    the correlation's inputs and an output buffer for the replay's launch
+    to fill, and begins the next graph."""
+
+    def __init__(self):
+        self.pool = torch.cuda.graph_pool_handle()
+        self.segments, self.corrs = [], []
+
+    def _begin(self):
+        self.segments.append(torch.cuda.CUDAGraph())
+        self.segments[-1].capture_begin(pool=self.pool,
+                                        capture_error_mode="thread_local")
+
+    def cut(self, f1, f2, search_range):
+        self.segments[-1].capture_end()
+        b, _, h, w = f1.shape
+        out = torch.empty((b, (2 * search_range + 1) ** 2, h, w),
+                          dtype=torch.float32, device=f1.device)
+        self.corrs.append((f1, f2, search_range, out))
+        self._begin()
+        return out
+
+    def capture(self, fn, *args):
+        """``fn(*args)``'s output, its work captured, on the current
+        stream."""
+        self._begin()
+        flow_corr_cuda.capture_cut = self.cut
+        try:
+            return fn(*args)
+        finally:
+            flow_corr_cuda.capture_cut = None
+            if torch.cuda.is_current_stream_capturing():
+                self.segments[-1].capture_end()
+
+
+def _flow_key(flow_model, prev_img, now_img, input_scale, corr_backend):
+    """What a captured flow graph is valid for: the device, the images'
+    shapes and dtypes, the scale, the resolved correlation backend and the
+    net's configuration (its widths and dtype among it)."""
+    dev = prev_img.device
+    backend = resolve_backend(corr_backend or flow_model.config.corr_backend,
+                              dev)
+    return (dev, tuple(prev_img.shape), prev_img.dtype, tuple(now_img.shape),
+            now_img.dtype, int(input_scale), backend, flow_model.config)
+
+
+def _graphed_flow(flow_model, prev_img, now_img, input_scale, corr_backend):
+    """``_flow_eager`` through the process's graph of this signature,
+    captured on its first call while fewer than ``FLOW_GRAPHS`` are held,
+    eager after. Counters ``flow_graph_captures`` and
+    ``flow_graph_replays`` of the pair."""
+    key = _flow_key(flow_model, prev_img, now_img, input_scale, corr_backend)
+    graph = _flow_graphs.get(key)
+    capture = graph is None and len(_flow_graphs) < FLOW_GRAPHS
+    profiling.count("flow_graph_captures", int(capture))
+    profiling.count("flow_graph_replays", int(graph is not None))
+    if graph is not None:
+        return graph(flow_model, prev_img, now_img)
+    if not capture:
+        return _flow_eager(flow_model, prev_img, now_img, input_scale,
+                           corr_backend)
+    _flow_graphs[key], flow = _FlowGraph.capture(
+        flow_model, prev_img, now_img, input_scale, corr_backend)
+    return flow
+
+
+def _graphable(prev_img, now_img) -> bool:
+    """Whether ``_flow_forward`` replays a graph: on CUDA images that
+    autograd has no reason to track."""
+    tracked = torch.is_grad_enabled() and (prev_img.requires_grad
+                                           or now_img.requires_grad)
+    return prev_img.device.type == "cuda" and not tracked
+
+
+def _flow_forward(flow_model, prev_img, now_img, input_scale: int = 1,
+                  corr_backend: str | None = None):
+    """Run the flow net on edge-padded inputs: (H, W, 2) flow.
+    ``corr_backend`` overrides the net's own ``config.corr_backend``.
+    CUDA images replay the function's CUDA graphs, one set a signature,
+    with the correlations launched between them (``_graphed_flow``); CPU
+    images, and images autograd tracks, run it
+    eagerly and count 0 captures and replays."""
+    if _graphable(prev_img, now_img):
+        return _graphed_flow(flow_model, prev_img, now_img, input_scale,
+                             corr_backend)
+    profiling.count("flow_graph_captures", 0)
+    profiling.count("flow_graph_replays", 0)
+    return _flow_eager(flow_model, prev_img, now_img, input_scale,
+                       corr_backend)
 
 
 def _sgm_forward(left, right, stereo: StereoModel,

@@ -4,8 +4,8 @@ around a region.
 
 A span is a named interval of one unit of work (a stereo pair's index, a
 train step) on the host's ``time.perf_counter_ns`` clock, with its parent
-span. Span sites call ``span``, ``sync_point``, ``add``, ``set_unit`` and
-``StageTimer.stage``; they record into the recorder ``recording`` has made
+span. Span sites call ``span``, ``sync_point``, ``add``, ``count``,
+``set_unit`` and ``StageTimer.stage``; they record into the recorder ``recording`` has made
 active, and cost one check of a module flag when none is. Inside
 ``detect_step``, ``train_step`` and the trainer's batch, a span recorded
 while a ``torch.profiler`` runs also opens a ``record_function`` range of
@@ -260,6 +260,14 @@ def sync_point(site: str):
     unit's counter. Keep one statement inside."""
     rec = _active
     return _OFF if rec is None else rec.span(SYNC_PREFIX + site, sync=True)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` of the current unit, if a recorder is
+    active."""
+    rec = _active
+    if rec is not None:
+        rec.count(name, n)
 
 
 def set_unit(unit: int) -> None:

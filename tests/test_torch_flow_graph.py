@@ -1,0 +1,332 @@
+"""The serving flow stage's CUDA graph cache (``pipeline._graphed_flow``)
+on the CPU: when ``_flow_forward`` takes it, what its key holds, the
+bound, that a graph keeps no net alive, the replay's refresh of the
+parameters, its copy-in and copy-out, the correlations it launches
+between its segments, and the counters.
+
+A CUDA graph needs a card. Here ``pipeline._FlowGraph`` is replaced by
+``_Stub``, which keeps the real replay (``_FlowGraph.__call__``) around a
+stand-in graph whose ``replay`` recomputes the captured function into its
+static output, as the card's graph rewrites its pool. The card's own
+graphs are held bitwise to the eager flow in
+``tests/test_torch_kernels_gpu.py``. The port alone: no JAX.
+"""
+
+import contextlib
+import copy
+import dataclasses
+import gc
+import io
+import types
+import weakref
+
+import numpy as np
+import pytest
+import torch
+
+from moving_object_detector_tpu_torch import config as tcfg
+from moving_object_detector_tpu_torch import pipeline
+from moving_object_detector_tpu_torch import run as trun
+from moving_object_detector_tpu_torch.models.pwc_net import PWCNet
+from moving_object_detector_tpu_torch.ops import flow_corr_cuda
+from moving_object_detector_tpu_torch.utils import profiling
+
+torch.set_num_threads(2)
+
+H, W = 32, 48
+FLOW_CFG = tcfg.FlowNetConfig(feature_channels=(8, 16, 32), search_range=2,
+                              use_context_net=False, dtype="float32")
+
+
+def _net(seed=0):
+    torch.manual_seed(seed)
+    return PWCNet(FLOW_CFG)
+
+
+def _pair(h=H, w=W, seed=4):
+    img = torch.from_numpy(np.random.default_rng(seed).random(
+        (h, w), np.float32))
+    return img, img.roll(2, 1)
+
+
+class _Replayer:
+    """Stands in for ``torch.cuda.CUDAGraph``: ``replay`` runs the
+    captured function on the static inputs into the static output."""
+
+    def __init__(self, run, prev, now, out):
+        self.run, self.prev, self.now, self.out = run, prev, now, out
+
+    def replay(self):
+        self.out.copy_(self.run(self.prev, self.now))
+
+
+class _Stub(pipeline._FlowGraph):
+    """``_FlowGraph`` with the capture done on the CPU: a copy of the net,
+    static copies of the images, the eager flow returned, one segment and
+    no correlation cut out of it."""
+
+    captured = []
+
+    @classmethod
+    def capture(cls, flow_model, prev_img, now_img, input_scale,
+                corr_backend):
+        net = copy.deepcopy(flow_model)
+
+        def run(a, b):
+            return pipeline._flow_eager(net, a, b, input_scale, corr_backend)
+
+        prev, now = prev_img.clone(), now_img.clone()
+        first = run(prev, now)
+        out = torch.empty_like(first)
+        cls.captured.append(tuple(prev_img.shape))
+        return cls([_Replayer(run, prev, now, out)], [], net, prev, now,
+                   out, []), first
+
+
+@pytest.fixture(autouse=True)
+def graphs(monkeypatch):
+    """A process's graphs of its own for each test."""
+    fresh = {}
+    monkeypatch.setattr(pipeline, "_flow_graphs", fresh)
+    return fresh
+
+
+@pytest.fixture
+def stub(monkeypatch):
+    monkeypatch.setattr(pipeline, "_FlowGraph", _Stub)
+    monkeypatch.setattr(_Stub, "captured", [])
+    return _Stub
+
+
+def _graphed(net, prev, now, scale=1, backend=None):
+    return pipeline._graphed_flow(net, prev, now, scale, backend)
+
+
+def test_cpu_images_build_no_graph_and_count_zero(graphs):
+    net = _net()
+    prev, now = _pair()
+    with profiling.recording() as rec:
+        profiling.set_unit(3)
+        flow = pipeline._flow_forward(net, prev, now)
+    assert not graphs
+    assert rec.counters[("flow_graph_captures", 3)] == 0
+    assert rec.counters[("flow_graph_replays", 3)] == 0
+    assert ("flow_graph_replays", 3) in rec.counters
+    assert torch.equal(flow, pipeline._flow_eager(net, prev, now))
+
+
+def test_routing_follows_device_and_autograd():
+    """CUDA images replay a graph whatever the grad mode, unless autograd
+    tracks one of them; CPU images never do."""
+    def img(device, requires_grad=False):
+        return types.SimpleNamespace(device=torch.device(device),
+                                     requires_grad=requires_grad)
+
+    cuda, cpu = img("cuda"), img("cpu")
+    assert pipeline._graphable(cuda, cuda)
+    with torch.no_grad():
+        assert pipeline._graphable(cuda, img("cuda", True))
+    assert not pipeline._graphable(cuda, img("cuda", True))
+    assert not pipeline._graphable(img("cuda", True), cuda)
+    assert not pipeline._graphable(cpu, cpu)
+
+
+@pytest.mark.parametrize("scale", [1, 2])
+def test_replays_are_bitwise_the_eager_flow(stub, scale):
+    """The first call returns the eager run of the capture; each later
+    pair a copy of the replay's output, which the next replay leaves
+    alone, each bitwise the eager flow of its pair."""
+    net = _net()
+    pairs = [_pair(seed=s) for s in range(4)]
+    flows = []
+    with profiling.recording() as rec:
+        for k, (prev, now) in enumerate(pairs):
+            profiling.set_unit(k)
+            flows.append(_graphed(net, prev, now, scale))
+    assert stub.captured == [(H, W)]
+    for (prev, now), flow in zip(pairs, flows):
+        assert torch.equal(flow, pipeline._flow_eager(net, prev, now, scale))
+    assert [rec.counters[("flow_graph_captures", k)] for k in range(4)] == [
+        1, 0, 0, 0]
+    assert [rec.counters[("flow_graph_replays", k)] for k in range(4)] == [
+        0, 1, 1, 1]
+
+
+class _Segment:
+    """A stand-in graph that logs its replay."""
+
+    def __init__(self, log, k):
+        self.log, self.k = log, k
+
+    def replay(self):
+        self.log.append(("segment", self.k))
+
+
+def test_a_replay_launches_each_correlation_between_its_segments(
+        monkeypatch):
+    """Segment k, then the correlation cut after it through the module's
+    ``corr_forward`` (which a benchmark's wrapper sees) into the buffer
+    segment k + 1 reads, and the last segment; the caller's parameters and
+    images copied in first, the output copied out."""
+    net = _net()
+    prev, now = _pair()
+    log = []
+    feats = [torch.rand(1, 3, 4, 6) for _ in range(4)]
+    corrs = [(feats[0], feats[1], 1, torch.zeros(1, 9, 4, 6)),
+             (feats[2], feats[3], 2, torch.zeros(1, 25, 4, 6))]
+    real = flow_corr_cuda.corr_forward
+
+    def logged(f1, f2, search_range, out=None):
+        log.append(("corr", search_range))
+        return real(f1, f2, search_range, out=out)
+
+    monkeypatch.setattr(flow_corr_cuda, "corr_forward", logged)
+    out = torch.full((H, W, 2), 7.0)
+    graph = pipeline._FlowGraph([_Segment(log, k) for k in range(3)], corrs,
+                                copy.deepcopy(net), torch.zeros(H, W),
+                                torch.zeros(H, W), out, [])
+    with torch.no_grad():
+        net.estimators[0].flow_head.bias.add_(1.0)
+    got = graph(net, prev, now)
+    assert log == [("segment", 0), ("corr", 1), ("segment", 1), ("corr", 2),
+                   ("segment", 2)]
+    for f1, f2, r, buf in corrs:
+        assert torch.equal(buf, flow_corr_cuda.corr_forward(f1, f2, r))
+    assert torch.equal(graph.prev, prev) and torch.equal(graph.now, now)
+    assert all(torch.equal(a, b) for a, b in zip(graph.params,
+                                                 net.parameters()))
+    assert torch.equal(got, out) and got.data_ptr() != out.data_ptr()
+
+
+def test_corr_forward_writes_into_out():
+    f1, f2 = torch.rand(2, 1, 3, 5, 7).unbind(0)
+    want = flow_corr_cuda.corr_forward(f1, f2, 2)
+    buf = torch.zeros_like(want)
+    assert flow_corr_cuda.corr_forward(f1, f2, 2, out=buf) is buf
+    assert torch.equal(buf, want)
+
+
+def test_the_key_follows_shape_scale_backend_and_configuration():
+    net = _net()
+    prev, now = _pair()
+
+    def key(p=prev, n=now, scale=1, backend=None, model=net):
+        return pipeline._flow_key(model, p, n, scale, backend)
+
+    base = key()
+    assert key(*_pair(H, W - 8)) != base
+    assert key(scale=2) != base
+    assert key(backend="pallas") != base
+    # "auto" resolves to the plain form on the CPU: one graph for both.
+    assert key(backend="xla") == base == key(backend="auto")
+    assert key(prev.double(), now.double()) != base
+    assert key(model=_net(seed=1)) == base  # the weights are not the key
+    other = PWCNet(dataclasses.replace(FLOW_CFG, search_range=1))
+    assert key(model=other) != base
+
+
+@pytest.mark.parametrize("how", ["in_place", "replaced", "another_net"])
+def test_a_replay_reads_the_callers_current_parameters(stub, how):
+    """An update in place, a replaced parameter, or another net of the
+    configuration: the same graph, its copy of the parameters refreshed,
+    the flow bitwise the eager flow of the caller's net."""
+    net = _net()
+    prev, now = _pair()
+    _graphed(net, prev, now)
+    _graphed(net, prev, now)
+    head = net.estimators[0].flow_head
+    if how == "in_place":
+        with torch.no_grad():
+            head.bias.add_(1.0)
+    elif how == "replaced":
+        head.bias = torch.nn.Parameter(head.bias.detach() + 1.0)
+    else:
+        net = _net(seed=1)
+    for a, b in ((prev, now), (now, prev)):
+        flow = _graphed(net, a, b)
+        assert torch.equal(flow, pipeline._flow_eager(net, a, b))
+    assert len(stub.captured) == 1
+
+
+def test_past_the_bound_signatures_run_eagerly_and_no_graph_is_freed(
+        stub, graphs):
+    net = _net()
+    widths = [W + 8 * i for i in range(pipeline.FLOW_GRAPHS + 2)]
+    kept = []
+    for w in widths:
+        with profiling.recording() as rec:
+            profiling.set_unit(0)
+            prev, now = _pair(H, w)
+            flow = _graphed(net, prev, now)
+        assert torch.equal(flow, pipeline._flow_eager(net, prev, now))
+        kept.append(rec.counters[("flow_graph_captures", 0)])
+        assert rec.counters[("flow_graph_replays", 0)] == 0
+    n = pipeline.FLOW_GRAPHS
+    assert kept == [1] * n + [0, 0]
+    first = list(graphs.values())
+    assert len(first) == n
+    _graphed(net, *_pair(H, widths[0]))
+    _graphed(net, *_pair(H, widths[-1]))
+    assert list(graphs.values()) == first and len(stub.captured) == n
+
+
+def test_a_graph_keeps_no_reference_to_the_callers_net(stub, graphs):
+    net = _net()
+    _graphed(net, *_pair())
+    gone = weakref.ref(net)
+    del net
+    gc.collect()
+    assert gone() is None and len(graphs) == 1
+
+
+def _tiny_step_inputs():
+    config = tcfg.PipelineConfig(
+        height=H, width=W, flownet=FLOW_CFG,
+        sgm=tcfg.SGMConfig(max_disparity=16, backend="xla"),
+        egomotion=tcfg.EgoMotionConfig(max_features=64, nms_radius=2,
+                                       ransac_hypotheses=16,
+                                       lk_pyramid_levels=2, min_inliers=8),
+        tracker=tcfg.TrackerConfig(max_tracks=4))
+    from moving_object_detector_tpu_torch.types import StereoModel
+
+    stereo = StereoModel.create(fx=50.0, fy=50.0, cx=W / 2, cy=H / 2,
+                                baseline=0.5, device="cpu")
+    state = pipeline.PipelineState.create(config, device="cpu")
+    left, right = _pair()
+    return config, stereo, state, left, right
+
+
+def test_detect_step_takes_the_cache_unless_flow_is_given(stub, monkeypatch):
+    """With the routing forced to the graph (as on a card), a step runs
+    its flow through the cache; a step given ``flow_override`` does not,
+    and counts neither counter."""
+    monkeypatch.setattr(pipeline, "_graphable", lambda a, b: True)
+    net = _net()
+    config, stereo, state, left, right = _tiny_step_inputs()
+    with profiling.recording() as rec:
+        state1, out = pipeline.detect_step(net, state, left, right, 0.0,
+                                           stereo, config)
+        pipeline.detect_step(net, state1, left, right, 0.1, stereo, config,
+                             flow_override=torch.zeros(H, W, 2))
+    assert stub.captured == [(H, W)]
+    assert torch.equal(out.flow, pipeline._flow_eager(
+        net, state.prev_left, left, config.flow_input_scale))
+    assert rec.counters[("flow_graph_captures", 0)] == 1
+    assert ("flow_graph_captures", 1) not in rec.counters
+    assert ("flow_graph_replays", 1) not in rec.counters
+
+
+def test_the_cli_report_prints_both_counters():
+    """``run --report`` on the CPU: a row for each counter, at 0 a pair."""
+    err = io.StringIO()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(err):
+        rc = trun.main(["--source", "synthetic", "--frames", "2",
+                        "--preset", "tiny", "--height", "64", "--width",
+                        "128", "--fx", "100", "--report"], device="cpu")
+    assert rc == 0
+    rows = {line.split()[1]: line.split()[2:]
+            for line in err.getvalue().splitlines()
+            if line.startswith("counter flow_graph_")}
+    assert rows == {"flow_graph_captures": ["2", "0.000"],
+                    "flow_graph_replays": ["2", "0.000"]}

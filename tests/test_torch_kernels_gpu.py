@@ -1313,3 +1313,126 @@ def test_every_sync_of_a_busy_pair_is_named(cuda):
             "sync.tracker_spawn_candidates"} <= set(syncs)
     print(f"syncs of the busy pair: {len(syncs)}: "
           f"{sorted(collections.Counter(syncs).items())}")
+
+
+def _pwc_v7(cuda):
+    """A fresh pwc_v7 net on the card (so its flow graphs are this test's
+    own) and the serving configuration: 376 x 1242, flow at scale 2."""
+    import os
+
+    from moving_object_detector_tpu_torch import config as cfgmod
+    from moving_object_detector_tpu_torch.utils.checkpoint import (
+        load_flow_checkpoint,
+    )
+
+    model, fcfg = load_flow_checkpoint(
+        os.path.join(os.path.dirname(os.path.dirname(__file__)), "weights",
+                     "pwc_v7.fp16.npz"), cfgmod.FlowNetConfig(), device=cuda)
+    return model, fcfg.corr_backend
+
+
+def test_flow_graph_is_bitwise_the_eager_flow_over_serving_pairs(
+        cuda, monkeypatch):
+    """8 consecutive 376 x 1242 pairs at scale 2 through ``_flow_forward``:
+    the first captures the graph (unless an earlier test did) and returns
+    its eager run, the others replay it; each flow bitwise the eager
+    ``_flow_eager``, unchanged by the later replays, with 4 ``corr``
+    launches a pair, each a call of the module's ``corr_forward`` (where a
+    benchmark's wrapper reads the call's shapes)."""
+    from moving_object_detector_tpu_torch import pipeline
+    from moving_object_detector_tpu_torch.utils import profiling
+
+    model, backend = _pwc_v7(cuda)
+    imgs = [torch.from_numpy(a).to(cuda) for a, _ in _patch_frames(9)]
+    key = pipeline._flow_key(model, imgs[0], imgs[1], 2, backend)
+    fresh = int(key not in pipeline._flow_graphs)
+    flows, eager, corr, calls = [], [], [], []
+    real = flow_corr_cuda.corr_forward
+
+    def seen(f1, *args, **kwargs):
+        calls[-1].append(tuple(f1.shape))
+        return real(f1, *args, **kwargs)
+
+    with profiling.recording() as rec:
+        for k in range(8):
+            profiling.set_unit(k)
+            before = flow_corr_cuda.LAUNCHES["corr"]
+            calls.append([])
+            with monkeypatch.context() as m:
+                m.setattr(flow_corr_cuda, "corr_forward", seen)
+                flows.append(pipeline._flow_forward(
+                    model, imgs[k], imgs[k + 1], input_scale=2,
+                    corr_backend=backend))
+            corr.append(flow_corr_cuda.LAUNCHES["corr"] - before)
+            eager.append(pipeline._flow_eager(
+                model, imgs[k], imgs[k + 1], 2, backend))
+    assert corr == [4] * 8
+    assert [len(c) for c in calls[1:]] == [4] * 7
+    assert all(c == calls[1] for c in calls[2:])
+    assert [rec.counters[("flow_graph_captures", k)] for k in range(8)] == [
+        fresh] + [0] * 7
+    assert [rec.counters[("flow_graph_replays", k)] for k in range(8)] == [
+        1 - fresh] + [1] * 7
+    for k, (a, b) in enumerate(zip(flows, eager)):
+        assert a.shape == (376, 1242, 2) and torch.equal(a, b), k
+    assert key in pipeline._flow_graphs
+
+
+def test_flow_graph_per_shape_and_the_callers_parameters(cuda):
+    """A second shape captures a second graph; an update in place, a
+    replaced parameter and a second net of the configuration are read by
+    the replay of the same graph, bitwise the eager flow."""
+    from moving_object_detector_tpu_torch import pipeline
+
+    model, backend = _pwc_v7(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    a, b = torch.rand((2, 376, 1242), generator=gen, device=cuda)
+    c, d = torch.rand((2, 192, 640), generator=gen, device=cuda)
+
+    def flow(net, p, q, scale=2):
+        out = pipeline._flow_forward(net, p, q, input_scale=scale,
+                                     corr_backend=backend)
+        assert torch.equal(out, pipeline._flow_eager(net, p, q, scale,
+                                                     backend))
+
+    def graphs():
+        return {id(g) for g in pipeline._flow_graphs.values()}
+
+    flow(model, a, b)
+    flow(model, b, a)
+    one = graphs()
+    flow(model, c, d, 1)
+    flow(model, d, c, 1)
+    two = graphs()
+    assert one <= two and len(two - one) <= 1
+    assert pipeline._flow_key(model, c, d, 1, backend) in pipeline._flow_graphs
+    with torch.no_grad():
+        model.context.residual.bias.add_(0.25)
+    flow(model, a, b)
+    conv = model.context.residual
+    conv.bias = torch.nn.Parameter(conv.bias.detach() - 0.5)
+    flow(model, a, b)
+    flow(model, b, a)
+    other, _ = _pwc_v7(cuda)
+    flow(other, a, b)
+    flow(model, a, b)
+    assert graphs() == two
+
+
+def test_replayed_flow_makes_no_host_wait(cuda):
+    """After its capture, a serving pair's flow stage runs with the card's
+    sync check set to raise."""
+    from moving_object_detector_tpu_torch import pipeline
+
+    model, backend = _pwc_v7(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    a, b = torch.rand((2, 376, 1242), generator=gen, device=cuda)
+    pipeline._flow_forward(model, a, b, input_scale=2, corr_backend=backend)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = pipeline._flow_forward(model, b, a, input_scale=2,
+                                     corr_backend=backend)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(out, pipeline._flow_eager(model, b, a, 2, backend))
