@@ -4,7 +4,7 @@
 
 1. Builds the CUDA kernels from ``moving_object_detector_tpu_torch/csrc``
    (one nvcc per source, in parallel) and prints the build seconds.
-2. Holds each of the fifteen kernels against its plain PyTorch version on
+2. Holds each of the sixteen kernels against its plain PyTorch version on
    the card, at the serving shapes and at an odd shape: the census pair,
    SGM deltas and disparity bitwise (v2, also at the spatial path's
    252 x 1242 stripe; the WTA for every combination of ``subpixel``,
@@ -60,7 +60,13 @@
    cluster stats on their edge cases (cap 1 and 32, repeated roots, no
    slot used, one cluster over the image, signed zeros and NaN members, a
    strided crop), three times in a row, on two streams at once and at the
-   full frame, and must be one kernel a call.
+   full frame, and must be one kernel a call. RAFT's lookup
+   (``raft_lookup``) within 1e-4 of its plain version and of the
+   published ``grid_sample`` lookup (both of the samples' scale), two runs
+   bit-identical, at RAFT's KITTI grid (47 x 156, 4 levels, r = 4, matches
+   near and far outside the maps) and at edge shapes (a batch of 2 and 3,
+   1 to 4 levels, r = 1 to 4, maps down to 2 x 2), timed at the KITTI grid
+   beside its bound and the ``grid_sample`` lookup.
 3. Runs ``pipeline.detect_step`` at the KITTI serving point (376 x 1242,
    pwc_v7 weights, flow and SGM at half resolution, two-window clusterer
    crop, default backends: windowed gather, CC and cluster-stats kernels)
@@ -859,6 +865,96 @@ def check_corr_kernel(dev, report):
                  "(_corr_kernel :37)",
         max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
         bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def raft_lookup_bytes_ops(n, levels, r):
+    """RAFT's lookup over n pixels: the coordinates read once, the
+    features written once, the (2r+2)^2 patch of each level a pixel's
+    samples need; four multiply-adds a sample."""
+    k = 2 * r + 1
+    return (4 * (2 * n + n * levels * k * k + n * levels * (k + 1) ** 2),
+            8 * n * levels * k * k)
+
+
+def raft_pyramid(dev, g, b, h, w, levels):
+    """An all-pairs pyramid of random (b, 256, h, w) features, as RAFT
+    builds it."""
+    from moving_object_detector_tpu_torch.models.raft import \
+        correlation_pyramid
+
+    f1 = torch.randn(b, 256, h, w, device=dev, generator=g)
+    f2 = torch.randn(b, 256, h, w, device=dev, generator=g)
+    return correlation_pyramid(f1, f2, levels)
+
+
+def raft_coords(dev, g, b, h, w, amp):
+    """Each pixel's own place plus a random shift of up to ``amp``
+    pixels, so that samples fall on and off every level's map."""
+    from moving_object_detector_tpu_torch.models.raft import coords_grid
+
+    return coords_grid(b, h, w, dev) + amp * (
+        2 * torch.rand(b, 2, h, w, device=dev, generator=g) - 1)
+
+
+def check_raft_lookup(dev, report):
+    """RAFT's lookup kernel against its plain version and against the
+    published grid_sample lookup (``portbench/reference/raft.py``) at the
+    KITTI grid and at edge shapes (radii 1..4, 1..4 levels, a batch of 2,
+    maps down to 2 x 2, matches far outside); its times at the KITTI
+    grid."""
+    from moving_object_detector_tpu_torch.ops import raft_lookup_cuda as rl
+    from portbench.reference import raft as ref
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    err = err_pub = 0.0
+    cases = [(1, 47, 156, 4, 4, 12.0), (1, 47, 156, 4, 4, 400.0),
+             (2, 16, 24, 4, 4, 8.0), (1, 16, 16, 3, 3, 30.0),
+             (1, 9, 13, 2, 2, 5.0), (3, 8, 8, 1, 1, 3.0)]
+    for b, h, w, levels, r, amp in cases:
+        pyr = raft_pyramid(dev, g, b, h, w, levels)
+        coords = raft_coords(dev, g, b, h, w, amp)
+        out = rl.raft_lookup(pyr, coords, r)
+        plain = rl.raft_lookup_plain(pyr, coords, r)
+        pub = ref.lookup([p[:, None] for p in pyr], coords, r)
+        e = (out - plain).abs().max().item()
+        e_pub = (out - pub).abs().max().item()
+        scale = pub.abs().max().item()
+        # Both tolerances are the coordinates' rounding: the kernel
+        # normalises them with IEEE division, PyTorch on the card multiplies
+        # by the divisor's reciprocal.
+        if not e <= 1e-4 * max(scale, 1.0):
+            raise AssertionError(f"raft_lookup differs from plain at "
+                                 f"{b}x{h}x{w} L={levels} r={r}: {e}")
+        if not e_pub <= 1e-4 * max(scale, 1.0):
+            raise AssertionError(f"raft_lookup differs from grid_sample at "
+                                 f"{b}x{h}x{w} L={levels} r={r}: {e_pub}")
+        if not torch.equal(out, rl.raft_lookup(pyr, coords, r)):
+            raise AssertionError("raft_lookup differs between two runs")
+        err, err_pub = max(err, e), max(err_pub, e_pub)
+    log(f"raft_lookup within {err:.3g} of plain and {err_pub:.3g} of "
+        f"grid_sample, two runs bit-identical, at {len(cases)} shapes")
+    b, h, w = 1, 47, 156
+    pyr = raft_pyramid(dev, g, b, h, w, 4)
+    coords = raft_coords(dev, g, b, h, w, 12.0)
+    pub_pyr = [p[:, None] for p in pyr]
+    t = timed(lambda: rl.raft_lookup(pyr, coords, 4),
+              lambda: rl.raft_lookup_plain(pyr, coords, 4))
+    library = median_ms(lambda: ref.lookup(pub_pyr, coords, 4))
+    nbytes, ops = raft_lookup_bytes_ops(b * h * w, 4, 4)
+    bms, by = bound_ms(nbytes, ops)
+    log(f"raft_lookup at the KITTI grid 47x156, 4 levels, r=4: "
+        f"{t['ms']:.4f} ms, on the device {t['device_ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f}, grid_sample {library:.4f}, bound {bms:.4f} "
+        f"({by}: {nbytes} bytes, {ops} operations); "
+        f"{kernel_registers('raft_lookup')}")
+    report["raft_lookup"] = dict(
+        name="raft_lookup", route="cuda",
+        source="moving_object_detector_tpu_torch/csrc/raft_lookup.cu",
+        replaces="none: RAFT's CorrBlock.__call__ (the JAX package has no "
+                 "RAFT)",
+        max_abs_err=max(err, err_pub), ms=t["ms"], device_ms=t["device_ms"],
+        plain_ms=t["plain_ms"], bound_ms=bms, bound_by=by,
+        library_ms=library)
 
 
 def corr_grad_bytes_ops(b, c, h, w):
@@ -1983,6 +2079,7 @@ def run_checks_and_paths(dev, report) -> None:
     check_fused_kernel(dev, report)
     check_gauss_newton_kernel(dev, report)
     check_ransac_kernel(dev, report)
+    check_raft_lookup(dev, report)
     for r in report.values():
         log(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3g} "
             f"ms {r['ms']:.4f} (on the device {r['device_ms']:.4f}) "

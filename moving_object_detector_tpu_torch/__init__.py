@@ -26,6 +26,7 @@ from .config import (  # noqa: E402
     EgoMotionConfig,
     FlowNetConfig,
     PipelineConfig,
+    RAFTConfig,
     SceneFlowConfig,
     SGMConfig,
     TrackerConfig,

@@ -25,7 +25,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("sgm_v2", "sgm_v1", "corr", "corr_bwd", "gather", "cc",
-           "cluster_stats", "sceneflow_fused", "gauss_newton")
+           "cluster_stats", "sceneflow_fused", "gauss_newton", "raft_lookup")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
 

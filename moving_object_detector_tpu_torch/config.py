@@ -333,6 +333,45 @@ class FlowNetConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RAFTConfig:
+    """RAFT optical flow (Teed & Deng, ECCV 2020, arXiv:2003.12039; the
+    published ``core/raft.py``), the port's second flow architecture
+    (``models/raft.py``). Defaults are the published widths and the KITTI
+    evaluation's 24 iterations.
+
+    ``feature_channels`` are the encoders' three residual stages at 1/2,
+    1/4 and 1/8 resolution (two of them of stride 2 after the stride-2
+    stem), so the serving step pads the input to a multiple of
+    ``2 ** len(feature_channels)`` = 8, the multiple RAFT needs.
+    ``corr_backend`` is the lookup's backend: "pallas" the CUDA kernel
+    (``ops/raft_lookup_cuda.py``; its plain version on CPU tensors), "xla"
+    the plain version, "auto" by device. Convolutions compute in
+    ``dtype``; the correlation volume, its pyramid, the lookup, the
+    coordinates and the convex upsampling in f32."""
+
+    in_channels: int = 3
+    feature_channels: Tuple[int, ...] = (64, 96, 128)
+    feature_dim: int = 256  # fnet's output, the all-pairs volume's depth
+    hidden_dim: int = 128  # the GRU's state, from the context encoder
+    context_dim: int = 128  # the GRU's context input
+    corr_levels: int = 4
+    corr_radius: int = 4
+    iters: int = 24
+    dtype: str = "bfloat16"
+    corr_backend: str = "auto"
+
+    def __post_init__(self):
+        if self.corr_backend not in ("auto", "pallas", "xla"):
+            raise ValueError(f"unknown corr_backend {self.corr_backend!r}")
+        if len(self.feature_channels) != 3:
+            raise ValueError("RAFT's encoders have three residual stages, "
+                             f"not {len(self.feature_channels)}")
+        if self.iters < 1 or self.corr_levels < 1 or self.corr_radius < 1:
+            raise ValueError("iters, corr_levels and corr_radius must be "
+                             "at least 1")
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """Top-level static configuration. Hashable: safe as a jit static arg."""
 
@@ -363,7 +402,9 @@ class PipelineConfig:
     tracker: TrackerConfig = dataclasses.field(default_factory=TrackerConfig)
     sgm: SGMConfig = dataclasses.field(default_factory=SGMConfig)
     egomotion: EgoMotionConfig = dataclasses.field(default_factory=EgoMotionConfig)
-    flownet: FlowNetConfig = dataclasses.field(default_factory=FlowNetConfig)
+    # The flow net: PWC-Net (``FlowNetConfig``) or RAFT (``RAFTConfig``).
+    flownet: FlowNetConfig | RAFTConfig = dataclasses.field(
+        default_factory=FlowNetConfig)
 
     def replace(self, **kw) -> "PipelineConfig":
         return dataclasses.replace(self, **kw)

@@ -211,7 +211,8 @@ def estimate_motion(prev_left, now_left, disparity_prev: DisparityImage,
     one bilinear sample of the field per feature; if the RANSAC then keeps
     fewer than ``lk_fallback_frac`` of the valid features, the motion is
     re-derived from pyramidal-LK tracks (a Python branch on the fetched
-    flag: one host sync per frame)."""
+    flag: one host sync per frame; counter ``egomotion_lk_fallbacks`` of
+    the frame, 0 or 1, while a span recorder is active)."""
     depth_prev = geometry.disparity_to_depth(disparity_prev)
     pts, feat_valid = select_features(
         prev_left, torch.isfinite(depth_prev), cfg,
@@ -244,6 +245,7 @@ def estimate_motion(prev_left, now_left, disparity_prev: DisparityImage,
         n_valid = torch.clamp(feat_valid.sum(), min=1)
         with profiling.sync_point("egomotion_lk_fallback"):
             fall_back = bool(count < cfg.lk_fallback_frac * n_valid)
+        profiling.count("egomotion_lk_fallbacks", int(fall_back))
         if fall_back:
             h_, w_ = prev_left.shape
             reach = cfg.lk_window * (2 ** (cfg.lk_pyramid_levels - 1)) + 2

@@ -3,11 +3,12 @@
     detect_step(flow_model, state, left, right, t, stereo, config)
         -> (state', FrameOutput)
 
-SGM disparity, PWC-Net flow, dense-flow ego-motion, scene flow,
-clustering and Kalman tracking for one stereo pair. PyTorch runs eagerly;
-the JAX ``lax.cond``s become Python branches on flags fetched from the
-device. The flow stage, which fetches nothing, replays CUDA graphs on
-the card, its correlations launched between them (``_flow_forward``). The state lives on the device of
+SGM disparity, optical flow (PWC-Net or RAFT), dense-flow ego-motion,
+scene flow, clustering and Kalman tracking for one stereo pair. PyTorch
+runs eagerly; the JAX ``lax.cond``s become Python branches on flags
+fetched from the device. The flow stage, which fetches nothing, replays
+CUDA graphs on the card, its correlations or lookups launched between
+them (``_flow_forward``). The state lives on the device of
 ``PipelineState.create``, which is ``cuda`` unless the caller passes
 ``device="cpu"``.
 """
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -24,7 +26,8 @@ from . import resolve_device
 from .clusterer import cluster_scene_flow
 from .config import PipelineConfig
 from .egomotion import estimate_motion
-from .ops import flow_corr_cuda, geometry, resize, resolve_backend
+from .ops import (flow_corr_cuda, geometry, raft_lookup_cuda, resize,
+                  resolve_backend)
 from .ops.resize import resize_image
 from .ops.sgm import compute_disparity, disparity_with_metadata, \
     sgm_disparity_raw
@@ -193,28 +196,37 @@ _flow_graphs: dict = {}
 
 class _FlowGraph:
     """``_flow_eager`` at one input signature, captured into CUDA graphs
-    and replayed. The capture is cut at each correlation (``_Cuts``): a
-    replay runs the segments in turn and launches the hand-written
-    correlation between them through ``flow_corr_cuda.corr_forward``,
-    which counts it, into the buffer the next segment reads. The graphs
-    run a copy of the net, whose parameters a replay copies in from the
-    caller's, so every net of one configuration shares the graphs and each
-    replay reads its caller's values. The two images are copied into
-    static buffers; a replay returns a copy of the graphs' output, so a
-    later replay leaves it be.
+    and replayed. The capture is cut at each hand-written kernel the net
+    calls, PWC-Net's correlations and RAFT's lookups (``_Cuts``): a replay
+    runs the segments in turn and launches each cut kernel between them
+    through its wrapper (``flow_corr_cuda.corr_forward``,
+    ``raft_lookup_cuda.raft_lookup``), which counts it, into the buffer the
+    next segment reads. The graphs run a copy of the net, whose parameters
+    and buffers (a batch norm's running statistics) a replay copies in
+    from the caller's, so every net of one configuration shares the graphs
+    and each replay reads its caller's values. The two images are copied
+    into static buffers; a replay returns a copy of the graphs' output, so
+    a later replay leaves it be. A replay adds the counters the captured
+    forward counted (RAFT's ``raft_iterations`` and ``raft_lookups``) and,
+    for a net that names ``replay_spans``, records its first segment as
+    the first span and the rest as the second.
 
     ``capture`` first runs the flow eagerly on a side stream (which builds
-    what is made lazily: the resize matrices, the correlation library,
+    what is made lazily: the resize matrices, the kernels' libraries,
     cuDNN's plans) and returns that run's flow with the graph; the graph
     holds the resize matrices it reads by address."""
 
-    def __init__(self, segments, corrs, net, prev, now, out, held):
-        """``segments``: the graphs, one more than ``corrs``, the
-        correlations' (f1, f2, search range, output) between them;
-        ``net``: the copy the graphs run."""
-        self.segments, self.corrs = segments, corrs
+    def __init__(self, segments, cuts, net, prev, now, out, held,
+                 counters=None):
+        """``segments``: the graphs, one more than ``cuts``, the kernels
+        cut out between them: a correlation's (f1, f2, search range,
+        output) or a ``_Lookup``; ``net``: the copy the graphs run;
+        ``counters``: {name: n} the captured forward counted."""
+        self.segments, self.cuts = segments, cuts
         self.prev, self.now, self.out, self.held = prev, now, out, held
-        self.params = list(net.parameters())
+        self.params = _state_tensors(net)
+        self.counters = counters or {}
+        self.spans = getattr(net, "replay_spans", None)
 
     @classmethod
     def capture(cls, flow_model, prev_img, now_img, input_scale,
@@ -239,34 +251,80 @@ class _FlowGraph:
         with resize.holding() as held, \
                 profiling.sync_point("flow_graph_capture"):
             torch.cuda.synchronize(dev)
-            with torch.cuda.stream(side):
+            # The forward's own counters land in a recorder of the
+            # capture's, to be added at each replay.
+            with torch.cuda.stream(side), profiling.recording() as rec:
                 out = cuts.capture(run, prev, now)
-        return cls(cuts.segments, cuts.corrs, net, prev, now, out,
-                   held), first
+        counters = {name: n for (name, _), n in rec.counters.items()}
+        return cls(cuts.segments, cuts.cuts, net, prev, now, out, held,
+                   counters), first
+
+    def _replay(self, first: int, last: int):
+        """Segments ``first`` .. ``last - 1``, each followed by its cut
+        kernel; the last segment of all has none."""
+        for k in range(first, last):
+            self.segments[k].replay()
+            if k < len(self.cuts):
+                _launch_cut(self.cuts[k])
 
     def __call__(self, flow_model, prev_img, now_img):
         with torch.no_grad():
-            torch._foreach_copy_(self.params, list(flow_model.parameters()))
+            torch._foreach_copy_(self.params, _state_tensors(flow_model))
         self.prev.copy_(prev_img)
         self.now.copy_(now_img)
-        for segment, (f1, f2, search_range, out) in zip(self.segments,
-                                                        self.corrs):
-            segment.replay()
-            flow_corr_cuda.corr_forward(f1, f2, search_range, out=out)
-        self.segments[-1].replay()
+        n = len(self.segments)
+        if self.spans is None:
+            self._replay(0, n)
+        else:
+            with profiling.span(self.spans[0]):
+                self._replay(0, 1)
+            with profiling.span(self.spans[1]):
+                self._replay(1, n)
+        for name, k in self.counters.items():
+            profiling.count(name, k)
         return self.out.clone()
+
+
+def _state_tensors(net) -> list:
+    """What a replay copies from the caller's net into the graphs' copy:
+    its parameters, then its buffers (a batch norm's running statistics
+    and count), in module order."""
+    return list(net.parameters()) + list(net.buffers())
+
+
+class _Lookup(NamedTuple):
+    """A RAFT lookup cut out of a capture: the pyramid's levels, the
+    coordinates and the output buffer, all of the graphs' pool."""
+
+    pyramid: list
+    coords: torch.Tensor
+    radius: int
+    out: torch.Tensor
+
+
+def _launch_cut(cut) -> None:
+    """Launch a kernel cut out of a capture into its output buffer,
+    through the wrapper's module attribute (so a benchmark's wrapper of it
+    sees the call)."""
+    if isinstance(cut, _Lookup):
+        raft_lookup_cuda.raft_lookup(cut.pyramid, cut.coords, cut.radius,
+                                     out=cut.out)
+    else:
+        f1, f2, search_range, out = cut
+        flow_corr_cuda.corr_forward(f1, f2, search_range, out=out)
 
 
 class _Cuts:
     """A function captured into CUDA graphs of one memory pool, cut at
-    each correlation: while ``capture`` runs, ``corr_forward`` calls
-    ``cut`` in place of its launch, which ends the current graph, keeps
-    the correlation's inputs and an output buffer for the replay's launch
-    to fill, and begins the next graph."""
+    each correlation and each RAFT lookup: while ``capture`` runs,
+    ``corr_forward`` and ``raft_lookup`` call ``cut`` / ``cut_lookup`` in
+    place of their launch, which ends the current graph, keeps the
+    kernel's inputs and an output buffer for the replay's launch to fill,
+    and begins the next graph."""
 
     def __init__(self):
         self.pool = torch.cuda.graph_pool_handle()
-        self.segments, self.corrs = [], []
+        self.segments, self.cuts = [], []
 
     def _begin(self):
         self.segments.append(torch.cuda.CUDAGraph())
@@ -278,7 +336,16 @@ class _Cuts:
         b, _, h, w = f1.shape
         out = torch.empty((b, (2 * search_range + 1) ** 2, h, w),
                           dtype=torch.float32, device=f1.device)
-        self.corrs.append((f1, f2, search_range, out))
+        self.cuts.append((f1, f2, search_range, out))
+        self._begin()
+        return out
+
+    def cut_lookup(self, pyramid, coords, radius):
+        self.segments[-1].capture_end()
+        b, _, h, w = coords.shape
+        out = torch.empty((b, len(pyramid) * (2 * radius + 1) ** 2, h, w),
+                          dtype=torch.float32, device=coords.device)
+        self.cuts.append(_Lookup(list(pyramid), coords, radius, out))
         self._begin()
         return out
 
@@ -287,18 +354,21 @@ class _Cuts:
         stream."""
         self._begin()
         flow_corr_cuda.capture_cut = self.cut
+        raft_lookup_cuda.capture_cut = self.cut_lookup
         try:
             return fn(*args)
         finally:
             flow_corr_cuda.capture_cut = None
+            raft_lookup_cuda.capture_cut = None
             if torch.cuda.is_current_stream_capturing():
                 self.segments[-1].capture_end()
 
 
 def _flow_key(flow_model, prev_img, now_img, input_scale, corr_backend):
     """What a captured flow graph is valid for: the device, the images'
-    shapes and dtypes, the scale, the resolved correlation backend and the
-    net's configuration (its widths and dtype among it)."""
+    shapes and dtypes, the scale, the resolved correlation (or lookup)
+    backend and the net's configuration, a ``FlowNetConfig`` or a
+    ``RAFTConfig`` (its widths, iterations and dtype among it)."""
     dev = prev_img.device
     backend = resolve_backend(corr_backend or flow_model.config.corr_backend,
                               dev)
@@ -416,9 +486,9 @@ def detect_step(flow_model, state: PipelineState, left, right, t,
     """One frame: stereo pair -> disparity, flow, ego-motion, scene flow,
     detections, tracks. Returns (new_state, FrameOutput).
 
-    ``flow_model`` is a ``PWCNet`` (unused with ``flow_override``); its
-    correlation runs on ``config.flownet.corr_backend``, whatever the net
-    was built with;
+    ``flow_model`` is a ``PWCNet`` or a ``RAFT`` (unused with
+    ``flow_override``); its correlation (RAFT's lookup) runs on
+    ``config.flownet.corr_backend``, whatever the net was built with;
     ``flow_override`` (H, W, 2) / ``disparity_override`` swap in external
     perception results. While a span recorder is active
     (``utils/profiling.py``) each stage (sgm, flow, egomotion, scene_flow,

@@ -8,7 +8,9 @@ goes back. ``save_flow_params`` writes what the port trains in the same
 keys: to a ``.npz`` path the fp16 archive both packages load, to any
 other path ``<path>/params.npz`` in f32, the port's stand-in for the
 reference package's Orbax checkpoint directory (which the port cannot
-read or write).
+read or write). RAFT (``models/raft.py``) loads under its published
+parameter names (``load_raft_state_dict``) or is drawn from a seed
+(``build_raft``).
 
 A pipeline-state snapshot (pose, previous frame and disparity, tracker
 bank, frame index) is one ``.npz`` of plain arrays under "/"-joined
@@ -27,8 +29,9 @@ import re
 import numpy as np
 import torch
 
-from ..config import FlowNetConfig
+from ..config import FlowNetConfig, RAFTConfig
 from ..models.pwc_net import PWCNet, infer_flow_config
+from ..models.raft import RAFT, init_raft_params
 
 _RULES = (
     (re.compile(r"params/FeaturePyramid_0/ConvBlock_(\d+)/Conv_0/"),
@@ -164,6 +167,37 @@ def load_flow_checkpoint(path: str, base_config: FlowNetConfig | None = None,
     model = PWCNet(cfg)
     model.load_state_dict(params_from_flax(flat), strict=True)
     return model.to(device).eval(), cfg
+
+
+def build_raft(config: RAFTConfig, seed: int, device=None) -> RAFT:
+    """A RAFT of ``config`` with weights drawn from ``seed`` as the
+    published modules initialise them (``models.raft.init_raft_params``;
+    on the CPU, so a seed gives the same weights on every device), in eval
+    mode on ``device`` (``cuda`` unless given)."""
+    from .. import resolve_device
+
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(int(seed) % (1 << 63))
+    return init_raft_params(RAFT(config), gen).to(device).eval()
+
+
+def load_raft_state_dict(state, config: RAFTConfig | None = None,
+                         device=None) -> RAFT:
+    """A RAFT of ``config`` (the published widths by default) holding a
+    state dict under the published parameter names: a dict of tensors or
+    the path of a published ``.pth`` (``raft-kitti.pth``); a ``module.``
+    prefix, as ``nn.DataParallel`` saved them, is stripped. Loaded
+    strictly, in eval mode on ``device`` (``cuda`` unless given)."""
+    from .. import resolve_device
+
+    device = resolve_device(device)
+    if isinstance(state, (str, os.PathLike)):
+        state = torch.load(state, map_location="cpu", weights_only=True)
+    state = {k[len("module."):] if k.startswith("module.") else k: v
+             for k, v in state.items()}
+    model = RAFT(config or RAFTConfig())
+    model.load_state_dict(state, strict=True)
+    return model.to(device).eval()
 
 
 _WEIGHT_NAMES = ("pwc_v7.fp16.npz", "pwc_v6m3.fp16.npz", "pwc_v5.fp16.npz",

@@ -330,3 +330,81 @@ def test_the_cli_report_prints_both_counters():
             if line.startswith("counter flow_graph_")}
     assert rows == {"flow_graph_captures": ["2", "0.000"],
                     "flow_graph_replays": ["2", "0.000"]}
+
+
+def _raft(iters=2):
+    from moving_object_detector_tpu_torch.utils.checkpoint import build_raft
+
+    return build_raft(tcfg.RAFTConfig(dtype="float32", iters=iters), 0,
+                      "cpu")
+
+
+def test_a_replay_copies_buffers_with_the_parameters():
+    """The copy list holds every parameter and then every buffer, so a
+    batch norm's running statistics changed in the caller's net reach the
+    graphs' copy at the next replay (RAFT's context encoder keeps them)."""
+    net = _raft()
+    listed = pipeline._state_tensors(net)
+    params, buffers = list(net.parameters()), list(net.buffers())
+    assert len(listed) == len(params) + len(buffers)
+    assert all(a is b for a, b in zip(listed, params + buffers))
+    assert any(t is net.cnet.norm1.running_mean for t in listed)
+    prev, now = _pair(64, 64)
+    graph = pipeline._FlowGraph([_Segment([], 0)], [], copy.deepcopy(net),
+                                torch.zeros(64, 64), torch.zeros(64, 64),
+                                torch.zeros(64, 64, 2), [])
+    with torch.no_grad():
+        net.cnet.norm1.running_mean.add_(1.0)
+        net.cnet.layer2[0].norm3.running_var.mul_(3.0)
+    graph(net, prev, now)
+    assert all(torch.equal(a, b) for a, b in zip(
+        graph.params, pipeline._state_tensors(net)))
+
+
+def test_a_replay_launches_each_lookup_between_its_segments(monkeypatch):
+    """A RAFT graph: segment k, then the lookup cut after it through the
+    module's ``raft_lookup`` into the buffer segment k + 1 reads; the
+    counters the capture counted added; the first segment in span
+    ``raft_encode``, the rest in ``raft_update``."""
+    from moving_object_detector_tpu_torch.models.raft import (
+        coords_grid, correlation_pyramid)
+    from moving_object_detector_tpu_torch.ops import raft_lookup_cuda
+
+    net = _raft()
+    prev, now = _pair(64, 64)
+    log = []
+    f1, f2 = torch.rand(2, 1, 8, 4, 6).unbind(0)
+    pyr = correlation_pyramid(f1, f2, 2)
+    cuts = [pipeline._Lookup(pyr, coords_grid(1, 4, 6, "cpu") + k, 4,
+                             torch.zeros(1, 162, 4, 6)) for k in range(2)]
+    real = raft_lookup_cuda.raft_lookup
+
+    def logged(pyramid, coords, radius, out=None):
+        log.append(("lookup", len(pyramid)))
+        return real(pyramid, coords, radius, out=out)
+
+    monkeypatch.setattr(raft_lookup_cuda, "raft_lookup", logged)
+    graph = pipeline._FlowGraph(
+        [_Segment(log, k) for k in range(3)], cuts, copy.deepcopy(net),
+        torch.zeros(64, 64), torch.zeros(64, 64), torch.zeros(64, 64, 2),
+        [], counters={"raft_iterations": 2, "raft_lookups": 2})
+    with profiling.recording() as rec:
+        profiling.set_unit(5)
+        graph(net, prev, now)
+    assert log == [("segment", 0), ("lookup", 2), ("segment", 1),
+                   ("lookup", 2), ("segment", 2)]
+    for cut in cuts:
+        assert torch.equal(cut.out, raft_lookup_cuda.raft_lookup_plain(
+            cut.pyramid, cut.coords, 4))
+    assert rec.counters[("raft_iterations", 5)] == 2
+    assert rec.counters[("raft_lookups", 5)] == 2
+    assert [s.name for s in rec.spans()] == ["raft_encode", "raft_update"]
+
+
+def test_the_key_covers_the_raft_configuration():
+    prev, now = _pair(64, 64)
+    base = pipeline._flow_key(_raft(2), prev, now, 1, None)
+    assert pipeline._flow_key(_raft(2), prev, now, 1, None) == base
+    assert pipeline._flow_key(_raft(3), prev, now, 1, None) != base
+    assert pipeline._flow_key(_raft(2), prev, now, 1, "pallas") != base
+    assert pipeline._flow_key(_net(), prev, now, 1, None) != base

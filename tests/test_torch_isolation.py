@@ -21,7 +21,7 @@ MODULES = ("config", "types", "tunables", "_build", "ops.geometry",
            "ops.flow_ops", "ops.flow_corr_cuda", "ops.clustering",
            "ops.clustering_cuda", "ops.cluster_stats",
            "ops.cluster_stats_cuda", "ops.gather_cuda", "ops.sceneflow_cuda",
-           "ops.gauss_newton_cuda",
+           "ops.gauss_newton_cuda", "ops.raft_lookup_cuda", "models.raft",
            "ops.image", "ops.assignment", "models.pwc_net",
            "utils.checkpoint", "utils.profiling", "utils.frames",
            "egomotion", "sceneflow", "clusterer", "tracker", "pipeline",

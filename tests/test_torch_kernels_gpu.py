@@ -1436,3 +1436,147 @@ def test_replayed_flow_makes_no_host_wait(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert torch.equal(out, pipeline._flow_eager(model, b, a, 2, backend))
+
+
+# RAFT's flow graphs stay alive for the process: a graph destroyed and
+# another captured after it can crash a later profiled replay.
+_RAFT_GRAPHS = []
+
+
+@pytest.mark.parametrize("b,h,w,levels,r,amp", [
+    (1, 47, 156, 4, 4, 12.0), (1, 47, 156, 4, 4, 300.0),
+    (2, 16, 24, 4, 4, 6.0), (1, 9, 13, 2, 3, 4.0), (3, 8, 8, 1, 1, 2.0)])
+def test_raft_lookup_kernel_matches_plain(cuda, b, h, w, levels, r, amp):
+    """The lookup kernel within 1e-4 of its plain version (of the samples'
+    scale) at RAFT's KITTI grid and at edge shapes, matches on and far off
+    the maps; one launch a call. The tolerance is the coordinates'
+    rounding: the kernel normalises them with IEEE division, PyTorch on
+    the card multiplies by the divisor's reciprocal, and a last-bit shift
+    of a coordinate near 150 px moves a sample of a random map by up to
+    about 2e-5 of its scale."""
+    from moving_object_detector_tpu_torch.models.raft import (
+        coords_grid, correlation_pyramid)
+    from moving_object_detector_tpu_torch.ops import raft_lookup_cuda
+
+    g = torch.Generator(device=cuda).manual_seed(b * 1000 + h + levels)
+    f1, f2 = torch.randn((2, b, 256, h, w), generator=g, device=cuda)
+    pyr = correlation_pyramid(f1, f2, levels)
+    coords = coords_grid(b, h, w, cuda) + amp * (
+        2 * torch.rand((b, 2, h, w), generator=g, device=cuda) - 1)
+    before = raft_lookup_cuda.LAUNCHES["raft_lookup"]
+    out = raft_lookup_cuda.raft_lookup(pyr, coords, r)
+    assert raft_lookup_cuda.LAUNCHES["raft_lookup"] == before + 1
+    ref = raft_lookup_cuda.raft_lookup_plain(pyr, coords, r)
+    assert out.shape == (b, levels * (2 * r + 1) ** 2, h, w)
+    scale = max(float(ref.abs().max()), 1.0)
+    assert float((out - ref).abs().max()) <= 1e-4 * scale
+
+
+def _raft_at_kitti(cuda, seed=3):
+    """A bf16 RAFT of the published widths, drawn from ``seed``."""
+    from moving_object_detector_tpu_torch.config import RAFTConfig
+    from moving_object_detector_tpu_torch.utils.checkpoint import build_raft
+
+    return build_raft(RAFTConfig(), seed, cuda)
+
+
+def _kitti_pair(cuda, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    a = torch.rand((376, 1242), generator=gen, device=cuda)
+    return a, torch.roll(a, (1, 3), (0, 1))
+
+
+@pytest.fixture
+def raft_graphs(monkeypatch):
+    """A flow-graph table of the test's own, its graphs kept after it."""
+    from moving_object_detector_tpu_torch import pipeline
+
+    fresh = {}
+    monkeypatch.setattr(pipeline, "_flow_graphs", fresh)
+    yield fresh
+    _RAFT_GRAPHS.extend(fresh.values())
+
+
+def test_raft_replay_cuts_each_lookup_and_equals_the_eager_flow(
+        cuda, raft_graphs):
+    """RAFT at 376 x 1242 (padded to 1248): the first pair captures 25
+    segments around 24 lookups, each later pair replays them with 24
+    ``raft_lookup`` launches through the module's wrapper, bitwise the
+    eager flow; counters 24 iterations and lookups a pair."""
+    from moving_object_detector_tpu_torch import pipeline
+    from moving_object_detector_tpu_torch.ops import raft_lookup_cuda
+    from moving_object_detector_tpu_torch.utils import profiling
+
+    model = _raft_at_kitti(cuda)
+    pairs = [_kitti_pair(cuda, s) for s in range(3)]
+    launches, flows = [], []
+    with profiling.recording() as rec:
+        for k, (a, b) in enumerate(pairs):
+            profiling.set_unit(k)
+            before = raft_lookup_cuda.LAUNCHES["raft_lookup"]
+            flows.append(pipeline._flow_forward(model, a, b))
+            launches.append(raft_lookup_cuda.LAUNCHES["raft_lookup"] - before)
+    for k, ((a, b), flow) in enumerate(zip(pairs, flows)):
+        assert flow.shape == (376, 1242, 2)
+        assert torch.equal(flow, pipeline._flow_eager(model, a, b)), k
+    (graph,) = raft_graphs.values()
+    assert len(graph.segments) == 25 and len(graph.cuts) == 24
+    assert launches == [24, 24, 24]
+    for k in range(3):
+        assert rec.counters[("raft_lookups", k)] == 24
+        assert rec.counters[("raft_iterations", k)] == 24
+    assert [rec.counters[("flow_graph_replays", k)] for k in range(3)] == [
+        0, 1, 1]
+    spans = {s.name for s in rec.spans() if s.unit == 2}
+    assert {"raft_encode", "raft_update"} <= spans
+
+
+def test_profiled_raft_replay_records_its_24_lookups(cuda, raft_graphs,
+                                                      monkeypatch):
+    """Under torch.profiler a replay shows 24 ``raft_lookup_kernel``
+    launches, and a wrapper of the module's ``raft_lookup`` (as the
+    benchmark's recorder wraps it) sees 24 calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from moving_object_detector_tpu_torch import pipeline
+    from moving_object_detector_tpu_torch.ops import raft_lookup_cuda
+
+    model = _raft_at_kitti(cuda)
+    a, b = _kitti_pair(cuda, 7)
+    pipeline._flow_forward(model, a, b)
+    calls = []
+    real = raft_lookup_cuda.raft_lookup
+
+    def seen(pyramid, coords, *args, **kwargs):
+        calls.append(tuple(coords.shape))
+        return real(pyramid, coords, *args, **kwargs)
+
+    monkeypatch.setattr(raft_lookup_cuda, "raft_lookup", seen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pipeline._flow_forward(model, b, a)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "raft_lookup_kernel" in e.name]
+    assert len(calls) == 24 and set(calls) == {(1, 2, 47, 156)}
+    assert len(kernels) == 24
+
+
+def test_raft_replay_reads_a_changed_batch_norm_buffer(cuda, raft_graphs):
+    """The context encoder's batch norm keeps running statistics, which a
+    replay copies in with the parameters: a changed running mean moves
+    the replayed flow, bitwise the eager flow of the changed net."""
+    from moving_object_detector_tpu_torch import pipeline
+
+    model = _raft_at_kitti(cuda)
+    a, b = _kitti_pair(cuda, 9)
+    pipeline._flow_forward(model, a, b)
+    before = pipeline._flow_forward(model, a, b)
+    with torch.no_grad():
+        model.cnet.norm1.running_mean.add_(0.5)
+        model.cnet.layer2[0].norm3.running_var.mul_(2.0)
+    after = pipeline._flow_forward(model, a, b)
+    assert not torch.equal(before, after)
+    assert torch.equal(after, pipeline._flow_eager(model, a, b))
