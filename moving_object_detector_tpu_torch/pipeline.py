@@ -5,12 +5,13 @@
 
 SGM disparity, optical flow (PWC-Net or RAFT), dense-flow ego-motion,
 scene flow, clustering and Kalman tracking for one stereo pair. PyTorch
-runs eagerly; the JAX ``lax.cond``s become Python branches on flags
-fetched from the device. The flow stage, which fetches nothing, replays
-CUDA graphs on the card, its correlations or lookups launched between
-them (``_flow_forward``). The state lives on the device of
-``PipelineState.create``, which is ``cuda`` unless the caller passes
-``device="cpu"``.
+runs eagerly; most JAX ``lax.cond``s become Python branches on flags
+fetched from the device, the tracker's a selection on the device. The
+flow stage, which fetches nothing, replays CUDA graphs on the card, its
+correlations or lookups launched between them (``_flow_forward``); so
+does the tracker stage (``tracker.track_frame``). The state lives on the
+device of ``PipelineState.create``, which is ``cuda`` unless the caller
+passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from .ops.resize import resize_image
 from .ops.sgm import compute_disparity, disparity_with_metadata, \
     sgm_disparity_raw
 from .sceneflow import construct_scene_flow
-from .tracker import TrackerState, track_step
+from .tracker import TrackerState, track_frame
 from .tunables import Tunables
 from .types import (DisparityImage, MovingObjects, SceneFlowCloud,
                     StereoModel, TrackedObjects)
@@ -565,21 +566,11 @@ def detect_step(flow_model, state: PipelineState, left, right, t,
     det_odom = transform_objects(detections, cam_to_odom)
 
     with profiling.span("tracker"):
-        with profiling.sync_point("tracker_frame_valid"):
-            track = bool(frame_valid)
-        if track:
-            new_tracker, tracked = track_step(
-                state.tracker, t, det_odom, config.tracker,
-                object_radius=tunables.object_radius,
-                covariance_trace_limit=tunables.covariance_trace_limit,
-                correction_count_limit=tunables.correction_count_limit)
-        else:
-            k = config.tracker.max_tracks
-            new_tracker = state.tracker
-            tracked = TrackedObjects(
-                objects=MovingObjects.empty(k, dev),
-                covariance=torch.zeros((k, 4, 4), dtype=torch.float32,
-                                       device=dev))
+        new_tracker, tracked = track_frame(
+            state.tracker, t, det_odom, frame_valid, config.tracker,
+            object_radius=tunables.object_radius,
+            covariance_trace_limit=tunables.covariance_trace_limit,
+            correction_count_limit=tunables.correction_count_limit)
 
     new_state = PipelineState(
         pose=new_pose, prev_left=left, prev_disparity=disparity_now,

@@ -9,17 +9,23 @@ P0 = 0.1 I; association cost -N(x; mean, cov) gated at sqrt(mahalanobis)
 unless within 2 * object_radius of a track (including ones spawned
 earlier in the same frame); tracks are pruned on covariance traces and
 published after ``correction_count_limit`` corrections. All math f32.
+
+The pipeline's stage is ``track_frame``: ``track_step`` where the frame is
+valid, else the state unchanged and nothing published, selected on the
+device. Its "nn" body never waits for the card, so on CUDA inputs the
+stage replays a CUDA graph of itself, one a signature (``_TrackerGraph``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 
 from .config import TrackerConfig
-from .types import MovingObjects, TrackedObjects
+from .types import MovingObjects, TrackedObjects, _map_tensors
 from .utils import profiling
 
 
@@ -59,25 +65,45 @@ class TrackerState:
         return self.mean.shape[0]
 
 
-def _process_noise(cfg: TrackerConfig, device) -> torch.Tensor:
-    with profiling.sync_point("tracker_process_noise"):
-        noise = torch.tensor(
-            [cfg.process_noise_pos, cfg.process_noise_pos,
-             cfg.process_noise_vel, cfg.process_noise_vel],
-            dtype=torch.float32, device=device)
-    return torch.diag(noise)
+class _Constants(NamedTuple):
+    eye: torch.Tensor  # (4, 4) I
+    process_noise: torch.Tensor  # Q
+    measurement_noise: torch.Tensor  # R
+    initial_cov: torch.Tensor  # P0
+
+
+# One set a (device, config), built on first use and kept: a captured
+# tracker graph reads them by address.
+_constants: dict = {}
+
+
+def _constants_for(cfg: TrackerConfig, device) -> _Constants:
+    key = (torch.device(device), cfg)
+    k = _constants.get(key)
+    if k is None:
+        eye = torch.eye(4, dtype=torch.float32, device=device)
+        with profiling.sync_point("tracker_constants"):  # Q copied in
+            noise = torch.tensor(
+                [cfg.process_noise_pos, cfg.process_noise_pos,
+                 cfg.process_noise_vel, cfg.process_noise_vel],
+                dtype=torch.float32, device=device)
+        k = _constants[key] = _Constants(
+            eye=eye, process_noise=torch.diag(noise),
+            measurement_noise=eye * cfg.measurement_noise,
+            initial_cov=eye * cfg.initial_cov)
+    return k
 
 
 def predict(state: TrackerState, t, cfg: TrackerConfig) -> TrackerState:
     """mean' = A mean, cov' = A cov A^T + Q for every active track."""
+    k = _constants_for(cfg, state.mean.device)
     dt = torch.clamp(t - state.last_prediction_time, min=cfg.min_dt)
-    a = torch.eye(4, dtype=torch.float32, device=dt.device).repeat(
-        state.capacity, 1, 1)
+    a = k.eye.repeat(state.capacity, 1, 1)
     a[:, 0, 2] = dt
     a[:, 1, 3] = dt
     new_mean = torch.einsum("tij,tj->ti", a, state.mean)
     new_cov = torch.einsum("tij,tjk,tlk->til", a, state.cov, a) + \
-        _process_noise(cfg, dt.device)
+        k.process_noise
     keep = state.active
     return state.replace(
         mean=torch.where(keep[:, None], new_mean, state.mean),
@@ -140,8 +166,7 @@ def _association_cost(state: TrackerState, obs4, obs_valid,
 def _greedy_associate(cost: torch.Tensor) -> torch.Tensor:
     """Best-first assignment with row/column elimination: per track, the
     matched observation index or -1. A fixed min(T, O) rounds of a masked
-    argmin on the device (the JAX fori_loop); each round reads its 0-d
-    index on the host."""
+    argmin on the device, with no host sync (the JAX fori_loop)."""
     n_trackers, n_obs = cost.shape
     dev = cost.device
     rows = torch.arange(n_trackers, device=dev)
@@ -151,9 +176,7 @@ def _greedy_associate(cost: torch.Tensor) -> torch.Tensor:
     for _ in range(min(n_trackers, n_obs)):
         flat = torch.argmin(c.reshape(-1))
         r, col = flat // n_obs, flat % n_obs
-        with profiling.sync_point("tracker_greedy_pick"):
-            picked = c.reshape(-1)[flat]
-        found = torch.isfinite(picked)
+        found = torch.isfinite(torch.take(c, flat))
         match = torch.where(found & (rows == r), col.to(torch.int32), match)
         c = c.masked_fill(found & ((rows[:, None] == r)
                                    | (cols[None, :] == col)), float("inf"))
@@ -188,13 +211,11 @@ def correct(state: TrackerState, t, detections: MovingObjects,
     midx = torch.clamp(match, min=0).long()
 
     z = obs4[midx]
-    r_noise = torch.eye(4, dtype=torch.float32, device=dev) * \
-        cfg.measurement_noise
+    k = _constants_for(cfg, dev)
     gain = torch.einsum("tij,tjk->tik", state.cov,
-                        _chol_inv_det4(state.cov + r_noise)[0])
+                        _chol_inv_det4(state.cov + k.measurement_noise)[0])
     new_mean = state.mean + torch.einsum("tij,tj->ti", gain, z - state.mean)
-    eye = torch.eye(4, dtype=torch.float32, device=dev)
-    new_cov = torch.einsum("tij,tjk->tik", eye[None] - gain, state.cov)
+    new_cov = torch.einsum("tij,tjk->tik", k.eye[None] - gain, state.cov)
     state = state.replace(
         mean=torch.where(matched[:, None], new_mean, state.mean),
         cov=torch.where(matched[:, None, None], new_cov, state.cov),
@@ -207,45 +228,34 @@ def correct(state: TrackerState, t, detections: MovingObjects,
     )
 
     # Spawn unmatched detections one after another, so each sees the
-    # tracks spawned before it in this frame.
-    obs_matched = torch.zeros((obs4.shape[0],), dtype=torch.bool,
-                              device=dev)
-    with profiling.sync_point("tracker_matched_index"):
-        hit = midx[matched]
-    with profiling.sync_point("tracker_matched_mark"):
-        obs_matched[hit] = True
-    with profiling.sync_point("tracker_spawn_candidates"):
-        spawn_cand = (obs_valid & ~obs_matched).tolist()
-    mean, cov, active = state.mean.clone(), state.cov.clone(), \
-        state.active.clone()
-    ids, ccount = state.id.clone(), state.correction_count.clone()
-    lct, lpt = state.last_correction_time.clone(), \
-        state.last_prediction_time.clone()
-    last_obs, next_id = state.last_obs.clone(), state.next_id.clone()
-    for i, is_cand in enumerate(spawn_cand):
-        if not is_cand:
-            continue
-        pos = obs4[i, :2]
-        dist = torch.linalg.vector_norm(mean[:, :2] - pos[None, :], dim=1)
-        close = (active & (dist < object_radius * 2.0)).any()
-        free_slot = torch.argmin(active.to(torch.int32))
-        with profiling.sync_point("tracker_spawn_flags"):
-            flags = torch.stack([close, active[free_slot]]).tolist()
-        if flags[0] or flags[1]:
-            continue
-        with profiling.sync_point("tracker_spawn_slot"):
-            slot = int(free_slot)
-        mean[slot] = obs4[i]
-        cov[slot] = eye * cfg.initial_cov
-        with profiling.sync_point("tracker_spawn_active"):
-            active[slot] = True
-        ids[slot] = next_id
-        with profiling.sync_point("tracker_spawn_count"):
-            ccount[slot] = 0
-        lct[slot] = t
-        lpt[slot] = t
-        last_obs[slot] = obs_record[i]
-        next_id = next_id + 1
+    # tracks spawned before it in this frame: a round a detection slot,
+    # which writes its detection into the first free track slot only
+    # where it spawns (no host read: the JAX package's fori_loop).
+    n_obs = obs4.shape[0]
+    cand = obs_valid & ~(match[:, None] == torch.arange(
+        n_obs, device=dev)).any(0)
+    rows = torch.arange(state.capacity, device=dev)
+    reach = object_radius * 2.0
+    mean, cov, active = state.mean, state.cov, state.active
+    ids, ccount = state.id, state.correction_count
+    lct, lpt = state.last_correction_time, state.last_prediction_time
+    last_obs, next_id = state.last_obs, state.next_id
+    for i in range(n_obs):
+        dist = torch.linalg.vector_norm(mean[:, :2] - obs4[i, :2][None, :],
+                                        dim=1)
+        close = (active & (dist < reach)).any()
+        # No slot is free where every one is active.
+        spawn = cand[i] & ~close & ~active.all()
+        put = (rows == torch.argmin(active.to(torch.int32))) & spawn
+        mean = torch.where(put[:, None], obs4[i], mean)
+        cov = torch.where(put[:, None, None], k.initial_cov, cov)
+        active = active | put
+        ids = torch.where(put, next_id, ids)
+        ccount = ccount.masked_fill(put, 0)
+        lct = torch.where(put, t, lct)
+        lpt = torch.where(put, t, lpt)
+        last_obs = torch.where(put[:, None], obs_record[i], last_obs)
+        next_id = next_id + spawn.to(torch.int32)
     pos_trace = cov[:, 0, 0] + cov[:, 1, 1]
     vel_trace = cov[:, 2, 2] + cov[:, 3, 3]
     keep = (pos_trace < covariance_trace_limit) & (
@@ -283,3 +293,146 @@ def track_step(state: TrackerState, t, detections: MovingObjects,
         valid=publish)
     cov = torch.where(publish[:, None, None], state.cov, zero)
     return state, TrackedObjects(objects=objects, covariance=cov)
+
+
+def _leaves(tree) -> list:
+    """The tensors of a tuple or dataclass tree, in field order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _leaves(v)]
+    return [x for f in dataclasses.fields(tree)
+            for x in _leaves(getattr(tree, f.name))]
+
+
+def _track_frame_eager(cfg: TrackerConfig, state: TrackerState, t,
+                       detections: MovingObjects, frame_valid,
+                       object_radius, covariance_trace_limit,
+                       correction_count_limit):
+    """``track_frame``'s body, every argument after ``cfg`` a tensor."""
+    new = track_step(state, t, detections, cfg, object_radius=object_radius,
+                     covariance_trace_limit=covariance_trace_limit,
+                     correction_count_limit=correction_count_limit)
+    k, dev = state.capacity, state.mean.device
+    idle = (state, TrackedObjects(
+        objects=MovingObjects.empty(k, dev),
+        covariance=torch.zeros((k, 4, 4), dtype=torch.float32, device=dev)))
+    olds = iter(_leaves(idle))
+    return _map_tensors(new, lambda a: torch.where(frame_valid, a,
+                                                   next(olds)))
+
+
+# Tracker graphs this process holds, one a signature, never freed (as the
+# flow graphs in ``pipeline``: a graph destroyed and another captured
+# after it can crash a later profiled replay). Signatures past the bound
+# run eagerly.
+TRACKER_GRAPHS = 8
+_tracker_graphs: dict = {}
+
+
+class _TrackerGraph:
+    """``_track_frame_eager`` at one signature, captured into a CUDA graph
+    and replayed. A replay copies the caller's tensors (the state, the
+    detections, the time, the flag, the three tunables) into the graph's
+    static inputs in one ``_foreach_copy_`` and returns copies of its
+    static outputs, so a later replay leaves them be.
+
+    ``capture`` first runs the stage eagerly on a side stream (which builds
+    what is made lazily: the constants, cuBLAS's workspace for the stream)
+    and returns that run's result with the graph."""
+
+    def __init__(self, graph, inputs, outputs):
+        self.graph, self.inputs, self.outputs = graph, inputs, outputs
+
+    @classmethod
+    def capture(cls, cfg: TrackerConfig, args: tuple):
+        """(graph, result): the stage captured on static copies of
+        ``args``, and its eager result."""
+        static = _map_tensors(args, torch.clone)
+        inputs = _leaves(static)
+        dev = inputs[0].device
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            first = _track_frame_eager(cfg, *static)
+        cur.wait_stream(side)
+        for x in _leaves(first):
+            x.record_stream(cur)
+        graph = torch.cuda.CUDAGraph()
+        with profiling.sync_point("tracker_graph_capture"):
+            torch.cuda.synchronize(dev)
+            with torch.cuda.stream(side):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    out = _track_frame_eager(cfg, *static)
+                finally:
+                    graph.capture_end()
+        return cls(graph, inputs, out), first
+
+    def __call__(self, args: tuple):
+        torch._foreach_copy_(self.inputs, _leaves(args))
+        self.graph.replay()
+        return _map_tensors(self.outputs, torch.clone)
+
+
+def _graphed_track(cfg: TrackerConfig, args: tuple):
+    """``_track_frame_eager`` through the process's graph of this
+    signature (the device, the track and detection capacities, the
+    configuration), captured on its first call while fewer than
+    ``TRACKER_GRAPHS`` are held, eager after."""
+    state, detections = args[0], args[2]
+    key = (state.mean.device, state.capacity, detections.capacity, cfg)
+    graph = _tracker_graphs.get(key)
+    capture = graph is None and len(_tracker_graphs) < TRACKER_GRAPHS
+    profiling.count("tracker_graph_captures", int(capture))
+    profiling.count("tracker_graph_replays", int(graph is not None))
+    if graph is not None:
+        return graph(args)
+    if not capture:
+        return _track_frame_eager(cfg, *args)
+    _tracker_graphs[key], out = _TrackerGraph.capture(cfg, args)
+    return out
+
+
+def _graphable(cfg: TrackerConfig, args: tuple) -> bool:
+    """Whether ``track_frame`` replays a graph: "nn" association on CUDA
+    tensors that autograd has no reason to track."""
+    tracked = torch.is_grad_enabled() and any(
+        x.requires_grad for x in _leaves(args))
+    return (args[0].mean.device.type == "cuda" and cfg.association == "nn"
+            and not tracked)
+
+
+def track_frame(state: TrackerState, t, detections: MovingObjects,
+                frame_valid, cfg: TrackerConfig = TrackerConfig(),
+                object_radius=None, covariance_trace_limit=None,
+                correction_count_limit=None):
+    """The pipeline's tracker stage: ``track_step`` where the 0-d bool
+    ``frame_valid`` holds, else ``state`` as it was and no track published
+    (empty ``TrackedObjects``), selected on the device: no host read.
+
+    "nn" association on CUDA tensors that autograd does not track replays
+    the process's CUDA graph of the stage for this signature
+    (``_graphed_track``); other inputs ("gnn" with its host-driven
+    auction, the CPU) run it eagerly and count 0 captures and replays.
+    Counters ``tracker_graph_captures`` and ``tracker_graph_replays`` of
+    the pair."""
+    dev = state.mean.device
+
+    def scalar(v, default, dtype):
+        return torch.as_tensor(default if v is None else v, dtype=dtype,
+                               device=dev)
+
+    args = (state, scalar(t, None, torch.float32), detections,
+            scalar(frame_valid, None, torch.bool),
+            scalar(object_radius, cfg.object_radius, torch.float32),
+            scalar(covariance_trace_limit, cfg.covariance_trace_limit,
+                   torch.float32),
+            scalar(correction_count_limit, cfg.correction_count_limit,
+                   torch.int32))
+    if _graphable(cfg, args):
+        return _graphed_track(cfg, args)
+    profiling.count("tracker_graph_captures", 0)
+    profiling.count("tracker_graph_replays", 0)
+    return _track_frame_eager(cfg, *args)

@@ -1309,8 +1309,10 @@ def test_every_sync_of_a_busy_pair_is_named(cuda):
     syncs = [s.name for s in rec.spans()
              if s.name.startswith(profiling.SYNC_PREFIX)]
     assert rec.counters[("syncs", 5)] == len(syncs)
-    assert {"sync.clusterer_windows", "sync.tracker_greedy_pick",
-            "sync.tracker_spawn_candidates"} <= set(syncs)
+    assert "sync.clusterer_windows" in syncs
+    # The tracker stage waits for nothing: a warm pair replays its graph.
+    assert not [s for s in syncs if s.startswith("sync.tracker_")], syncs
+    assert rec.counters[("tracker_graph_replays", 5)] == 1
     print(f"syncs of the busy pair: {len(syncs)}: "
           f"{sorted(collections.Counter(syncs).items())}")
 
@@ -1580,3 +1582,144 @@ def test_raft_replay_reads_a_changed_batch_norm_buffer(cuda, raft_graphs):
     after = pipeline._flow_forward(model, a, b)
     assert not torch.equal(before, after)
     assert torch.equal(after, pipeline._flow_eager(model, a, b))
+
+
+def _tracker_frames(cuda):
+    """``tests/tracker_cases.py``'s serving sequence (64 tracks, 16
+    detection slots; one pair with ``frame_valid`` false), then 3 quiet
+    pairs (no detection) and the sequence's first 4 pairs again, later:
+    busy, quiet and invalid pairs, each as (t, detections, frame_valid)
+    on the card."""
+    from tracker_cases import serving
+
+    from moving_object_detector_tpu_torch.types import MovingObjects
+
+    frames = serving()
+    quiet = [(t + 1.0, c, v, b, np.zeros_like(valid), True)
+             for t, c, v, b, valid, _ in frames[-3:]]
+    again = [(t + 2.0, *rest) for t, *rest in frames[:4]]
+    out = []
+    for t, center, velocity, bbox, valid, frame_valid in (
+            frames + quiet + again):
+        ids = np.where(valid, np.arange(valid.shape[0]), -1)
+        dets = MovingObjects(
+            id=torch.tensor(ids, dtype=torch.int32, device=cuda),
+            center=torch.tensor(center, device=cuda),
+            velocity=torch.tensor(velocity, device=cuda),
+            bounding_box=torch.tensor(bbox, device=cuda),
+            valid=torch.tensor(valid, device=cuda))
+        out.append((torch.tensor(float(t), device=cuda), dets,
+                    torch.tensor(frame_valid, device=cuda)))
+    return out
+
+
+def _reference_track(state, t, dets, frame_valid, cfg):
+    """The benchmark's plain reference tracker on the card, its branch on
+    ``frame_valid`` as ``portbench/reference/step.py`` takes it."""
+    from portbench.core import judge_serve
+    from portbench.reference import tracker as rtr
+    from portbench.reference import types as rtypes
+
+    if bool(frame_valid):
+        return rtr.track_step(judge_serve.as_reference(state), t,
+                              judge_serve.as_reference(dets), cfg)
+    k = state.capacity
+    return state, rtypes.TrackedObjects(
+        objects=rtypes.MovingObjects.empty(k, t.device),
+        covariance=torch.zeros((k, 4, 4), dtype=torch.float32,
+                               device=t.device))
+
+
+def _same_bits(a, b):
+    from moving_object_detector_tpu_torch.tracker import _leaves
+
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and x.cpu().numpy().tobytes() == y.cpu().numpy().tobytes()
+        for x, y in zip(la, lb))
+
+
+def test_tracker_graph_is_bitwise_the_eager_stage_over_serving_pairs(cuda):
+    """The serving shapes (64 tracks, 16 detections) over busy, quiet and
+    ``frame_valid``-false pairs through ``track_frame``: the first pair
+    captures the graph (unless an earlier test did) and returns its eager
+    run, the others replay it; each pair's state and tracks bitwise the
+    eager stage's and the benchmark's plain reference's on the card, each
+    unchanged by the later replays; 1 replay a warm pair."""
+    from moving_object_detector_tpu_torch import tracker
+    from moving_object_detector_tpu_torch.config import (
+        PipelineConfig,
+        TrackerConfig,
+    )
+    from moving_object_detector_tpu_torch.tunables import Tunables
+    from moving_object_detector_tpu_torch.utils import profiling
+    from portbench.reference.config import TrackerConfig as RefConfig
+
+    cfg = TrackerConfig()
+    tun = Tunables.from_config(PipelineConfig(), cuda)
+    knobs = dict(object_radius=tun.object_radius,
+                 covariance_trace_limit=tun.covariance_trace_limit,
+                 correction_count_limit=tun.correction_count_limit)
+    frames = _tracker_frames(cuda)
+    key = (frames[0][0].device, 64, 16, cfg)
+    fresh = int(key not in tracker._tracker_graphs)
+    state = eager = ref = tracker.TrackerState.create(64, cuda)
+    kept = []
+    with profiling.recording() as rec:
+        for k, (t, dets, frame_valid) in enumerate(frames):
+            profiling.set_unit(k)
+            out = tracker.track_frame(state, t, dets, frame_valid, cfg,
+                                      **knobs)
+            want = tracker._track_frame_eager(
+                cfg, eager, t, dets, frame_valid, knobs["object_radius"],
+                knobs["covariance_trace_limit"],
+                knobs["correction_count_limit"])
+            plain = _reference_track(ref, t, dets, frame_valid, RefConfig())
+            assert _same_bits(out, want), k
+            assert _same_bits(out, plain), k
+            kept.append(([x.clone() for x in tracker._leaves(out)], out))
+            state, eager, ref = out[0], want[0], plain[0]
+    for k, (copies, out) in enumerate(kept):
+        assert all(torch.equal(a, b)
+                   for a, b in zip(copies, tracker._leaves(out))), k
+    n = len(frames)
+    assert [rec.counters[("tracker_graph_captures", k)]
+            for k in range(n)] == [fresh] + [0] * (n - 1)
+    assert [rec.counters[("tracker_graph_replays", k)]
+            for k in range(n)] == [1 - fresh] + [1] * (n - 1)
+    assert int(state.next_id) >= 6 and key in tracker._tracker_graphs
+    assert any(bool(o[1].objects.valid.any()) for _, o in kept)
+
+
+def test_replayed_tracker_makes_no_host_wait(cuda):
+    """After its capture, the tracker stage at the serving shapes runs
+    with the card's sync check set to raise, and a replay's result stays
+    its own after the next replay."""
+    from moving_object_detector_tpu_torch import tracker
+    from moving_object_detector_tpu_torch.config import TrackerConfig
+
+    cfg = TrackerConfig()
+    frames = _tracker_frames(cuda)
+    state = tracker.TrackerState.create(64, cuda)
+    t, dets, valid = frames[0]
+    state, _ = tracker.track_frame(state, t, dets, valid, cfg)
+    knobs = [torch.tensor(v, device=cuda) for v in (
+        cfg.object_radius, cfg.covariance_trace_limit)] + [
+        torch.tensor(cfg.correction_count_limit, dtype=torch.int32,
+                     device=cuda)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = []
+        for t, dets, valid in frames[1:6]:
+            state, tracked = tracker.track_frame(state, t, dets, valid, cfg,
+                                                 *knobs)
+            outs.append((state, tracked))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    first = [x.clone() for x in tracker._leaves(outs[0])]
+    assert all(torch.equal(a, b)
+               for a, b in zip(first, tracker._leaves(outs[0])))
+    assert not any(a.data_ptr() == b.data_ptr() for a, b in zip(
+        tracker._leaves(outs[0]), tracker._leaves(outs[1])))

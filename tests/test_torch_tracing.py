@@ -43,17 +43,13 @@ LOOP = ("ring", "ring_pop", "dispatch", "pending", "harvest")
 # The sync sites of pair 1 of each sequence on the CPU path of CONFIG
 # (PERF.md lists them with the card's): the plain RANSAC's transforms
 # and the plain CC's rounds wait for the card too where they run on it.
-# The busy pair spawns a track from its one detection.
+# The busy pair spawns a track from its one detection; the tracker waits
+# for nothing.
 QUIET_SITES = {
     "step_time": 1, "scalar_to_device": 2, "egomotion_lk_fallback": 1,
-    "se3_bottom_row": 23, "clusterer_extent": 1, "tracker_frame_valid": 1,
-    "tracker_process_noise": 1, "tracker_greedy_pick": 4,
-    "tracker_matched_index": 1, "tracker_matched_mark": 1,
-    "tracker_spawn_candidates": 1,
+    "se3_bottom_row": 23, "clusterer_extent": 1,
 }
-BUSY_SITES = dict(QUIET_SITES, cc_converged=4, tracker_spawn_flags=1,
-                  tracker_spawn_slot=1, tracker_spawn_active=1,
-                  tracker_spawn_count=1)
+BUSY_SITES = dict(QUIET_SITES, cc_converged=4)
 
 
 def _config():
