@@ -1877,7 +1877,7 @@ def check_flow_graph(model, config, prev, now, what: str) -> None:
                 f"flow graph at {what}: max |diff| against the eager flow "
                 f"{float((got - want).abs().max())}, {n} corr launches")
     if pipeline._flow_key(model, prev, now, scale,
-                          backend) not in pipeline._flow_graphs:
+                          backend) not in pipeline._flow_cache.graphs:
         raise AssertionError(f"flow graph at {what}: no graph captured")
     reps = 3
     on_card = sum(n for name, n in device_kernels(
@@ -1888,7 +1888,8 @@ def check_flow_graph(model, config, prev, now, what: str) -> None:
     log(f"flow graph at {what} ({tuple(prev.shape)}, scale {scale}): "
         f"bitwise the eager flow on two pairs, {len(CORR_LEVELS)} corr "
         f"launches a call, {on_card} corr kernels on the card in {reps} "
-        f"replays; {len(pipeline._flow_graphs)} graphs held in the process")
+        f"replays; {len(pipeline._flow_cache.graphs)} graphs held in the "
+        "process")
 
 
 def check_gauss_newton_per_frame(per_frame, what: str) -> None:

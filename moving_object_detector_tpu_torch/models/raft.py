@@ -32,8 +32,8 @@ Inside ``detect_step`` the encoders, the volume and its pyramid are span
 ``raft_encode``, the updates and the upsampling span ``raft_update``
 (``utils/profiling.py``); counters ``raft_iterations`` and
 ``raft_lookups``. ``replay_spans`` names the spans of a replayed CUDA
-graph of the forward (``pipeline._FlowGraph``): its first segment, which
-ends at the first lookup, and the rest.
+graph of the forward (``pipeline._flow_forward``): its first segment,
+which ends at the first lookup, and the rest.
 """
 
 from __future__ import annotations

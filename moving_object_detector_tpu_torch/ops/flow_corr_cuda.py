@@ -10,6 +10,8 @@ its count in ``LAUNCHES`` ("corr", "corr_backward"); on CPU tensors both
 directions run the plain versions ``flow_ops.correlation`` and
 ``flow_ops.correlation_backward``. A failed build or launch raises;
 nothing falls back to autograd through the plain form on a CUDA tensor.
+Inside a CUDA graph's capture ``corr_forward`` is a cut point
+(``utils/cuda_graphs.py``): each replay launches it between the graphs.
 """
 
 from __future__ import annotations
@@ -20,14 +22,10 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from .. import _build
+from ..utils import cuda_graphs
 from . import flow_ops
 
 LAUNCHES = {"corr": 0, "corr_backward": 0}
-# While the flow stage's CUDA graphs are captured (``pipeline._Cuts``):
-# called by ``corr_forward`` on the capturing stream in place of its
-# launch, it ends the current graph and returns the buffer that the
-# replay's launch fills.
-capture_cut = None
 MAX_GRID = 65535  # blocks along a grid's second and third dimension
 _typed = set()
 
@@ -159,10 +157,13 @@ def corr_forward(f1: torch.Tensor, f2: torch.Tensor,
         corr = flow_ops.correlation(f1, f2, search_range)
         return corr if out is None else out.copy_(corr)
     f1, f2 = _kernel_inputs(f1, f2, search_range)
-    if capture_cut is not None and torch.cuda.is_current_stream_capturing():
-        return capture_cut(f1, f2, search_range)
     b, c, h, w = f1.shape
     shape = (b, (2 * search_range + 1) ** 2, h, w)
+    cut = cuda_graphs.cut_point(__name__, "corr_forward",
+                                (f1, f2, search_range), shape, torch.float32,
+                                f1.device)
+    if cut is not None:
+        return cut
     if out is None:
         out = torch.empty(shape, dtype=torch.float32, device=f1.device)
     elif (tuple(out.shape) != shape or out.dtype != torch.float32

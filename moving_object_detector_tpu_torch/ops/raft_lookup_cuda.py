@@ -8,6 +8,8 @@ then a concatenation). It replaces no kernel of the JAX package, which
 has no RAFT. On CUDA tensors ``raft_lookup`` launches the kernel, one
 launch for all levels, and adds one to ``LAUNCHES["raft_lookup"]``; on CPU
 tensors it runs ``raft_lookup_plain``. A failed build or launch raises.
+Inside a CUDA graph's capture ``raft_lookup`` is a cut point
+(``utils/cuda_graphs.py``): each replay launches it between the graphs.
 """
 
 from __future__ import annotations
@@ -17,13 +19,9 @@ import ctypes
 import torch
 
 from .. import _build
+from ..utils import cuda_graphs
 
 LAUNCHES = {"raft_lookup": 0}
-# While the flow stage's CUDA graphs are captured (``pipeline._Cuts``):
-# called by ``raft_lookup`` on the capturing stream in place of its
-# launch, it ends the current graph and returns the buffer that the
-# replay's launch fills.
-capture_cut = None
 MAX_LEVELS = 4  # csrc/raft_lookup.cu kMaxLevels
 MAX_RADIUS = 4  # kMaxRadius
 _typed = False
@@ -128,11 +126,14 @@ def raft_lookup(pyramid, coords: torch.Tensor, radius: int = 4,
         feats = raft_lookup_plain(pyramid, coords, radius)
         return feats if out is None else out.copy_(feats)
     pyramid, coords = _kernel_inputs(pyramid, coords, radius)
-    if capture_cut is not None and torch.cuda.is_current_stream_capturing():
-        return capture_cut(pyramid, coords, radius)
     b, _, h, w = coords.shape
     levels = len(pyramid)
     shape = (b, levels * (2 * radius + 1) ** 2, h, w)
+    cut = cuda_graphs.cut_point(__name__, "raft_lookup",
+                                (pyramid, coords, radius), shape,
+                                torch.float32, coords.device)
+    if cut is not None:
+        return cut
     if out is None:
         out = torch.empty(shape, dtype=torch.float32, device=coords.device)
     elif (tuple(out.shape) != shape or out.dtype != torch.float32

@@ -21,7 +21,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from ..types import _map_tensors
+from ..utils.trees import map_tensors
 
 
 def create_mesh(n_devices: int | None = None, model_parallel: int = 1,
@@ -73,7 +73,7 @@ def shard_batch(mesh: DeviceMesh, batch):
     """Every (B, ...) tensor of ``batch`` (tuples, lists and dicts are
     walked) with the batch dim over "data": each rank keeps its slice, as
     a DTensor whose ``to_local()`` is that slice."""
-    return _map_tensors(batch, lambda x: _data_shard(mesh, x))
+    return map_tensors(batch, lambda x: _data_shard(mesh, x))
 
 
 def _conv_kernel_spec(name: str, param: torch.Tensor):

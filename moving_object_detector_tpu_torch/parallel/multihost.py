@@ -20,7 +20,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
 from .. import resolve_device
-from ..types import _map_tensors
+from ..utils.trees import map_tensors
 from .mesh import create_mesh, _data_placements
 
 # Rendezvous and collective timeout: a rank that stalls fails the others
@@ -83,7 +83,7 @@ def distribute_streams(mesh, local_batch):
         return DTensor.from_local(x, mesh, placements, run_check=False,
                                   shape=shape, stride=stride)
 
-    return _map_tensors(local_batch, one)
+    return map_tensors(local_batch, one)
 
 
 def host_local_results(global_tree):
@@ -93,4 +93,4 @@ def host_local_results(global_tree):
     def one(x):
         return (x.to_local() if isinstance(x, DTensor) else x).cpu().numpy()
 
-    return _map_tensors(global_tree, one)
+    return map_tensors(global_tree, one)

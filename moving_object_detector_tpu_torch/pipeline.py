@@ -7,18 +7,18 @@ SGM disparity, optical flow (PWC-Net or RAFT), dense-flow ego-motion,
 scene flow, clustering and Kalman tracking for one stereo pair. PyTorch
 runs eagerly; most JAX ``lax.cond``s become Python branches on flags
 fetched from the device, the tracker's a selection on the device. The
-flow stage, which fetches nothing, replays CUDA graphs on the card, its
-correlations or lookups launched between them (``_flow_forward``); so
-does the tracker stage (``tracker.track_frame``). The state lives on the
-device of ``PipelineState.create``, which is ``cuda`` unless the caller
-passes ``device="cpu"``.
+flow stage, which fetches nothing, replays CUDA graphs on the card
+(``utils/cuda_graphs.py``), its correlations or lookups launched between
+them (``_flow_forward``); so does the tracker stage
+(``tracker.track_frame``). The state lives on the device of
+``PipelineState.create``, which is ``cuda`` unless the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -27,8 +27,7 @@ from . import resolve_device
 from .clusterer import cluster_scene_flow
 from .config import PipelineConfig
 from .egomotion import estimate_motion
-from .ops import (flow_corr_cuda, geometry, raft_lookup_cuda, resize,
-                  resolve_backend)
+from .ops import geometry, resize, resolve_backend
 from .ops.resize import resize_image
 from .ops.sgm import compute_disparity, disparity_with_metadata, \
     sgm_disparity_raw
@@ -37,7 +36,7 @@ from .tracker import TrackerState, track_frame
 from .tunables import Tunables
 from .types import (DisparityImage, MovingObjects, SceneFlowCloud,
                     StereoModel, TrackedObjects)
-from .utils import profiling
+from .utils import cuda_graphs, profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,104 +185,7 @@ def _flow_eager(flow_model, prev_img, now_img, input_scale: int = 1,
     return flow
 
 
-# Flow graphs this process holds, one a signature. A graph is never
-# freed: with torch 2.11 and CUDA 12.8 on an H100, a graph destroyed and
-# another captured after it make the next replay of an older graph crash
-# under torch.profiler, once a profiler has run before those captures.
-# Signatures past the bound run eagerly.
-FLOW_GRAPHS = 8
-_flow_graphs: dict = {}
-
-
-class _FlowGraph:
-    """``_flow_eager`` at one input signature, captured into CUDA graphs
-    and replayed. The capture is cut at each hand-written kernel the net
-    calls, PWC-Net's correlations and RAFT's lookups (``_Cuts``): a replay
-    runs the segments in turn and launches each cut kernel between them
-    through its wrapper (``flow_corr_cuda.corr_forward``,
-    ``raft_lookup_cuda.raft_lookup``), which counts it, into the buffer the
-    next segment reads. The graphs run a copy of the net, whose parameters
-    and buffers (a batch norm's running statistics) a replay copies in
-    from the caller's, so every net of one configuration shares the graphs
-    and each replay reads its caller's values. The two images are copied
-    into static buffers; a replay returns a copy of the graphs' output, so
-    a later replay leaves it be. A replay adds the counters the captured
-    forward counted (RAFT's ``raft_iterations`` and ``raft_lookups``) and,
-    for a net that names ``replay_spans``, records its first segment as
-    the first span and the rest as the second.
-
-    ``capture`` first runs the flow eagerly on a side stream (which builds
-    what is made lazily: the resize matrices, the kernels' libraries,
-    cuDNN's plans) and returns that run's flow with the graph; the graph
-    holds the resize matrices it reads by address."""
-
-    def __init__(self, segments, cuts, net, prev, now, out, held,
-                 counters=None):
-        """``segments``: the graphs, one more than ``cuts``, the kernels
-        cut out between them: a correlation's (f1, f2, search range,
-        output) or a ``_Lookup``; ``net``: the copy the graphs run;
-        ``counters``: {name: n} the captured forward counted."""
-        self.segments, self.cuts = segments, cuts
-        self.prev, self.now, self.out, self.held = prev, now, out, held
-        self.params = _state_tensors(net)
-        self.counters = counters or {}
-        self.spans = getattr(net, "replay_spans", None)
-
-    @classmethod
-    def capture(cls, flow_model, prev_img, now_img, input_scale,
-                corr_backend):
-        """(graph, flow): ``_flow_eager`` captured on a copy of the net,
-        and its eager flow."""
-        net = copy.deepcopy(flow_model)
-
-        def run(a, b):
-            return _flow_eager(net, a, b, input_scale, corr_backend)
-
-        dev = prev_img.device
-        cur = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        prev, now = prev_img.clone(), now_img.clone()
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            first = run(prev, now)
-        cur.wait_stream(side)
-        first.record_stream(cur)
-        cuts = _Cuts()
-        with resize.holding() as held, \
-                profiling.sync_point("flow_graph_capture"):
-            torch.cuda.synchronize(dev)
-            # The forward's own counters land in a recorder of the
-            # capture's, to be added at each replay.
-            with torch.cuda.stream(side), profiling.recording() as rec:
-                out = cuts.capture(run, prev, now)
-        counters = {name: n for (name, _), n in rec.counters.items()}
-        return cls(cuts.segments, cuts.cuts, net, prev, now, out, held,
-                   counters), first
-
-    def _replay(self, first: int, last: int):
-        """Segments ``first`` .. ``last - 1``, each followed by its cut
-        kernel; the last segment of all has none."""
-        for k in range(first, last):
-            self.segments[k].replay()
-            if k < len(self.cuts):
-                _launch_cut(self.cuts[k])
-
-    def __call__(self, flow_model, prev_img, now_img):
-        with torch.no_grad():
-            torch._foreach_copy_(self.params, _state_tensors(flow_model))
-        self.prev.copy_(prev_img)
-        self.now.copy_(now_img)
-        n = len(self.segments)
-        if self.spans is None:
-            self._replay(0, n)
-        else:
-            with profiling.span(self.spans[0]):
-                self._replay(0, 1)
-            with profiling.span(self.spans[1]):
-                self._replay(1, n)
-        for name, k in self.counters.items():
-            profiling.count(name, k)
-        return self.out.clone()
+_flow_cache = cuda_graphs.GraphCache("flow")
 
 
 def _state_tensors(net) -> list:
@@ -291,78 +193,6 @@ def _state_tensors(net) -> list:
     its parameters, then its buffers (a batch norm's running statistics
     and count), in module order."""
     return list(net.parameters()) + list(net.buffers())
-
-
-class _Lookup(NamedTuple):
-    """A RAFT lookup cut out of a capture: the pyramid's levels, the
-    coordinates and the output buffer, all of the graphs' pool."""
-
-    pyramid: list
-    coords: torch.Tensor
-    radius: int
-    out: torch.Tensor
-
-
-def _launch_cut(cut) -> None:
-    """Launch a kernel cut out of a capture into its output buffer,
-    through the wrapper's module attribute (so a benchmark's wrapper of it
-    sees the call)."""
-    if isinstance(cut, _Lookup):
-        raft_lookup_cuda.raft_lookup(cut.pyramid, cut.coords, cut.radius,
-                                     out=cut.out)
-    else:
-        f1, f2, search_range, out = cut
-        flow_corr_cuda.corr_forward(f1, f2, search_range, out=out)
-
-
-class _Cuts:
-    """A function captured into CUDA graphs of one memory pool, cut at
-    each correlation and each RAFT lookup: while ``capture`` runs,
-    ``corr_forward`` and ``raft_lookup`` call ``cut`` / ``cut_lookup`` in
-    place of their launch, which ends the current graph, keeps the
-    kernel's inputs and an output buffer for the replay's launch to fill,
-    and begins the next graph."""
-
-    def __init__(self):
-        self.pool = torch.cuda.graph_pool_handle()
-        self.segments, self.cuts = [], []
-
-    def _begin(self):
-        self.segments.append(torch.cuda.CUDAGraph())
-        self.segments[-1].capture_begin(pool=self.pool,
-                                        capture_error_mode="thread_local")
-
-    def cut(self, f1, f2, search_range):
-        self.segments[-1].capture_end()
-        b, _, h, w = f1.shape
-        out = torch.empty((b, (2 * search_range + 1) ** 2, h, w),
-                          dtype=torch.float32, device=f1.device)
-        self.cuts.append((f1, f2, search_range, out))
-        self._begin()
-        return out
-
-    def cut_lookup(self, pyramid, coords, radius):
-        self.segments[-1].capture_end()
-        b, _, h, w = coords.shape
-        out = torch.empty((b, len(pyramid) * (2 * radius + 1) ** 2, h, w),
-                          dtype=torch.float32, device=coords.device)
-        self.cuts.append(_Lookup(list(pyramid), coords, radius, out))
-        self._begin()
-        return out
-
-    def capture(self, fn, *args):
-        """``fn(*args)``'s output, its work captured, on the current
-        stream."""
-        self._begin()
-        flow_corr_cuda.capture_cut = self.cut
-        raft_lookup_cuda.capture_cut = self.cut_lookup
-        try:
-            return fn(*args)
-        finally:
-            flow_corr_cuda.capture_cut = None
-            raft_lookup_cuda.capture_cut = None
-            if torch.cuda.is_current_stream_capturing():
-                self.segments[-1].capture_end()
 
 
 def _flow_key(flow_model, prev_img, now_img, input_scale, corr_backend):
@@ -377,49 +207,39 @@ def _flow_key(flow_model, prev_img, now_img, input_scale, corr_backend):
             now_img.dtype, int(input_scale), backend, flow_model.config)
 
 
-def _graphed_flow(flow_model, prev_img, now_img, input_scale, corr_backend):
-    """``_flow_eager`` through the process's graph of this signature,
-    captured on its first call while fewer than ``FLOW_GRAPHS`` are held,
-    eager after. Counters ``flow_graph_captures`` and
-    ``flow_graph_replays`` of the pair."""
-    key = _flow_key(flow_model, prev_img, now_img, input_scale, corr_backend)
-    graph = _flow_graphs.get(key)
-    capture = graph is None and len(_flow_graphs) < FLOW_GRAPHS
-    profiling.count("flow_graph_captures", int(capture))
-    profiling.count("flow_graph_replays", int(graph is not None))
-    if graph is not None:
-        return graph(flow_model, prev_img, now_img)
-    if not capture:
-        return _flow_eager(flow_model, prev_img, now_img, input_scale,
-                           corr_backend)
-    _flow_graphs[key], flow = _FlowGraph.capture(
-        flow_model, prev_img, now_img, input_scale, corr_backend)
-    return flow
-
-
-def _graphable(prev_img, now_img) -> bool:
-    """Whether ``_flow_forward`` replays a graph: on CUDA images that
-    autograd has no reason to track."""
-    tracked = torch.is_grad_enabled() and (prev_img.requires_grad
-                                           or now_img.requires_grad)
-    return prev_img.device.type == "cuda" and not tracked
-
-
 def _flow_forward(flow_model, prev_img, now_img, input_scale: int = 1,
                   corr_backend: str | None = None):
     """Run the flow net on edge-padded inputs: (H, W, 2) flow.
     ``corr_backend`` overrides the net's own ``config.corr_backend``.
-    CUDA images replay the function's CUDA graphs, one set a signature,
-    with the correlations launched between them (``_graphed_flow``); CPU
-    images, and images autograd tracks, run it
-    eagerly and count 0 captures and replays."""
-    if _graphable(prev_img, now_img):
-        return _graphed_flow(flow_model, prev_img, now_img, input_scale,
-                             corr_backend)
-    profiling.count("flow_graph_captures", 0)
-    profiling.count("flow_graph_replays", 0)
-    return _flow_eager(flow_model, prev_img, now_img, input_scale,
-                       corr_backend)
+
+    CUDA images that autograd does not track replay the process's CUDA
+    graphs of ``_flow_eager`` for this signature (``_flow_cache``), cut at
+    each correlation and RAFT lookup, which launch between them; other
+    images run it eagerly and count 0 captures and replays. The graphs run
+    a copy of the net whose parameters and buffers are inputs a replay
+    copies in from the caller's, so every net of one configuration shares
+    them and each replay reads its caller's values; they hold the resize
+    matrices they read by address. A net that names ``replay_spans``
+    (RAFT) has its first segment recorded as the first span, the rest as
+    the second."""
+    def on(net):  # the net's state tensors, the first argument, are its own
+        return lambda _state, a, b: _flow_eager(net, a, b, input_scale,
+                                                corr_backend)
+
+    def capture():
+        net = copy.deepcopy(flow_model)
+        return cuda_graphs.Graph.capture(
+            "flow", on(net),
+            (_state_tensors(net), prev_img.clone(), now_img.clone()),
+            spans=getattr(net, "replay_spans", None), hold=resize.holding)
+
+    key = None
+    if cuda_graphs.graphable(prev_img, now_img):
+        key = _flow_key(flow_model, prev_img, now_img, input_scale,
+                        corr_backend)
+    return _flow_cache(key, on(flow_model),
+                       (_state_tensors(flow_model), prev_img, now_img),
+                       capture)
 
 
 def _sgm_forward(left, right, stereo: StereoModel,

@@ -13,20 +13,22 @@ published after ``correction_count_limit`` corrections. All math f32.
 The pipeline's stage is ``track_frame``: ``track_step`` where the frame is
 valid, else the state unchanged and nothing published, selected on the
 device. Its "nn" body never waits for the card, so on CUDA inputs the
-stage replays a CUDA graph of itself, one a signature (``_TrackerGraph``).
+stage replays a CUDA graph of itself, one a signature
+(``utils/cuda_graphs.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 
 from .config import TrackerConfig
-from .types import MovingObjects, TrackedObjects, _map_tensors
-from .utils import profiling
+from .types import MovingObjects, TrackedObjects
+from .utils import cuda_graphs, profiling, trees
 
 
 @dataclasses.dataclass(frozen=True)
@@ -295,16 +297,6 @@ def track_step(state: TrackerState, t, detections: MovingObjects,
     return state, TrackedObjects(objects=objects, covariance=cov)
 
 
-def _leaves(tree) -> list:
-    """The tensors of a tuple or dataclass tree, in field order."""
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, tuple):
-        return [x for v in tree for x in _leaves(v)]
-    return [x for f in dataclasses.fields(tree)
-            for x in _leaves(getattr(tree, f.name))]
-
-
 def _track_frame_eager(cfg: TrackerConfig, state: TrackerState, t,
                        detections: MovingObjects, frame_valid,
                        object_radius, covariance_trace_limit,
@@ -317,91 +309,12 @@ def _track_frame_eager(cfg: TrackerConfig, state: TrackerState, t,
     idle = (state, TrackedObjects(
         objects=MovingObjects.empty(k, dev),
         covariance=torch.zeros((k, 4, 4), dtype=torch.float32, device=dev)))
-    olds = iter(_leaves(idle))
-    return _map_tensors(new, lambda a: torch.where(frame_valid, a,
-                                                   next(olds)))
+    olds = iter(trees.leaves(idle))
+    return trees.map_tensors(new, lambda a: torch.where(frame_valid, a,
+                                                        next(olds)))
 
 
-# Tracker graphs this process holds, one a signature, never freed (as the
-# flow graphs in ``pipeline``: a graph destroyed and another captured
-# after it can crash a later profiled replay). Signatures past the bound
-# run eagerly.
-TRACKER_GRAPHS = 8
-_tracker_graphs: dict = {}
-
-
-class _TrackerGraph:
-    """``_track_frame_eager`` at one signature, captured into a CUDA graph
-    and replayed. A replay copies the caller's tensors (the state, the
-    detections, the time, the flag, the three tunables) into the graph's
-    static inputs in one ``_foreach_copy_`` and returns copies of its
-    static outputs, so a later replay leaves them be.
-
-    ``capture`` first runs the stage eagerly on a side stream (which builds
-    what is made lazily: the constants, cuBLAS's workspace for the stream)
-    and returns that run's result with the graph."""
-
-    def __init__(self, graph, inputs, outputs):
-        self.graph, self.inputs, self.outputs = graph, inputs, outputs
-
-    @classmethod
-    def capture(cls, cfg: TrackerConfig, args: tuple):
-        """(graph, result): the stage captured on static copies of
-        ``args``, and its eager result."""
-        static = _map_tensors(args, torch.clone)
-        inputs = _leaves(static)
-        dev = inputs[0].device
-        cur = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            first = _track_frame_eager(cfg, *static)
-        cur.wait_stream(side)
-        for x in _leaves(first):
-            x.record_stream(cur)
-        graph = torch.cuda.CUDAGraph()
-        with profiling.sync_point("tracker_graph_capture"):
-            torch.cuda.synchronize(dev)
-            with torch.cuda.stream(side):
-                graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    out = _track_frame_eager(cfg, *static)
-                finally:
-                    graph.capture_end()
-        return cls(graph, inputs, out), first
-
-    def __call__(self, args: tuple):
-        torch._foreach_copy_(self.inputs, _leaves(args))
-        self.graph.replay()
-        return _map_tensors(self.outputs, torch.clone)
-
-
-def _graphed_track(cfg: TrackerConfig, args: tuple):
-    """``_track_frame_eager`` through the process's graph of this
-    signature (the device, the track and detection capacities, the
-    configuration), captured on its first call while fewer than
-    ``TRACKER_GRAPHS`` are held, eager after."""
-    state, detections = args[0], args[2]
-    key = (state.mean.device, state.capacity, detections.capacity, cfg)
-    graph = _tracker_graphs.get(key)
-    capture = graph is None and len(_tracker_graphs) < TRACKER_GRAPHS
-    profiling.count("tracker_graph_captures", int(capture))
-    profiling.count("tracker_graph_replays", int(graph is not None))
-    if graph is not None:
-        return graph(args)
-    if not capture:
-        return _track_frame_eager(cfg, *args)
-    _tracker_graphs[key], out = _TrackerGraph.capture(cfg, args)
-    return out
-
-
-def _graphable(cfg: TrackerConfig, args: tuple) -> bool:
-    """Whether ``track_frame`` replays a graph: "nn" association on CUDA
-    tensors that autograd has no reason to track."""
-    tracked = torch.is_grad_enabled() and any(
-        x.requires_grad for x in _leaves(args))
-    return (args[0].mean.device.type == "cuda" and cfg.association == "nn"
-            and not tracked)
+_tracker_cache = cuda_graphs.GraphCache("tracker")
 
 
 def track_frame(state: TrackerState, t, detections: MovingObjects,
@@ -413,11 +326,10 @@ def track_frame(state: TrackerState, t, detections: MovingObjects,
     (empty ``TrackedObjects``), selected on the device: no host read.
 
     "nn" association on CUDA tensors that autograd does not track replays
-    the process's CUDA graph of the stage for this signature
-    (``_graphed_track``); other inputs ("gnn" with its host-driven
-    auction, the CPU) run it eagerly and count 0 captures and replays.
-    Counters ``tracker_graph_captures`` and ``tracker_graph_replays`` of
-    the pair."""
+    the process's CUDA graph of the stage for this signature: the device,
+    the track and detection capacities, the configuration
+    (``_tracker_cache``); other inputs ("gnn" with its host-driven
+    auction, the CPU) run it eagerly and count 0 captures and replays."""
     dev = state.mean.device
 
     def scalar(v, default, dtype):
@@ -431,8 +343,9 @@ def track_frame(state: TrackerState, t, detections: MovingObjects,
                    torch.float32),
             scalar(correction_count_limit, cfg.correction_count_limit,
                    torch.int32))
-    if _graphable(cfg, args):
-        return _graphed_track(cfg, args)
-    profiling.count("tracker_graph_captures", 0)
-    profiling.count("tracker_graph_replays", 0)
-    return _track_frame_eager(cfg, *args)
+    key = None
+    if cfg.association == "nn" and cuda_graphs.graphable(
+            *trees.leaves(args)):
+        key = (dev, state.capacity, detections.capacity, cfg)
+    return _tracker_cache(key, functools.partial(_track_frame_eager, cfg),
+                          args)

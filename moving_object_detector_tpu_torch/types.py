@@ -12,6 +12,7 @@ import dataclasses
 import torch
 
 from .utils import profiling
+from .utils.trees import map_tensors
 
 
 def _f32(v, device=None) -> torch.Tensor:
@@ -140,22 +141,6 @@ class TrackedObjects(_Replace):
     covariance: torch.Tensor
 
 
-
-def _map_tensors(node, fn):
-    """``node`` with ``fn`` applied to every tensor in it; dataclasses,
-    tuples, lists and dicts are walked, other leaves kept."""
-    if isinstance(node, torch.Tensor):
-        return fn(node)
-    if dataclasses.is_dataclass(node) and not isinstance(node, type):
-        return type(node)(**{f.name: _map_tensors(getattr(node, f.name), fn)
-                             for f in dataclasses.fields(node)})
-    if isinstance(node, (tuple, list)):
-        return type(node)(_map_tensors(x, fn) for x in node)
-    if isinstance(node, dict):
-        return {k: _map_tensors(v, fn) for k, v in node.items()}
-    return node
-
-
 def to_host(tree):
     """``tree`` with every tensor as a numpy array, fetched as one batch:
     the copies from the card are queued together (``non_blocking``, into
@@ -169,7 +154,7 @@ def to_host(tree):
         streams[t.device] = torch.cuda.current_stream(t.device)
         return t.to("cpu", non_blocking=True)
 
-    staged = _map_tensors(tree, queue)
+    staged = map_tensors(tree, queue)
     for stream in streams.values():
         stream.synchronize()
-    return _map_tensors(staged, lambda t: t.numpy())
+    return map_tensors(staged, lambda t: t.numpy())

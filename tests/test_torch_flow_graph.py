@@ -1,15 +1,15 @@
-"""The serving flow stage's CUDA graph cache (``pipeline._graphed_flow``)
-on the CPU: when ``_flow_forward`` takes it, what its key holds, the
-bound, that a graph keeps no net alive, the replay's refresh of the
-parameters, its copy-in and copy-out, the correlations it launches
-between its segments, and the counters.
+"""The serving flow stage's CUDA graphs (``pipeline._flow_forward``
+through ``utils/cuda_graphs.py``) on the CPU: replays bitwise the eager
+flow, what the key holds, that a graph keeps no net alive, the replay's
+refresh of the parameters and buffers, the correlations and RAFT lookups
+it launches between its segments, ``detect_step``'s routing and the
+counters. What the flow shares with the tracker stage (the CPU and
+autograd routing, the bound, the copy in and out) is in
+``tests/test_torch_cuda_graphs.py``.
 
-A CUDA graph needs a card. Here ``pipeline._FlowGraph`` is replaced by
-``_Stub``, which keeps the real replay (``_FlowGraph.__call__``) around a
-stand-in graph whose ``replay`` recomputes the captured function into its
-static output, as the card's graph rewrites its pool. The card's own
-graphs are held bitwise to the eager flow in
-``tests/test_torch_kernels_gpu.py``. The port alone: no JAX.
+A CUDA graph needs a card: ``graph_stub.StubGraph`` stands in for the
+captured graphs. The card's own graphs are held bitwise to the eager flow
+in ``tests/test_torch_kernels_gpu.py``. The port alone: no JAX.
 """
 
 import contextlib
@@ -17,19 +17,19 @@ import copy
 import dataclasses
 import gc
 import io
-import types
 import weakref
 
 import numpy as np
 import pytest
 import torch
 
+import graph_stub
 from moving_object_detector_tpu_torch import config as tcfg
 from moving_object_detector_tpu_torch import pipeline
 from moving_object_detector_tpu_torch import run as trun
 from moving_object_detector_tpu_torch.models.pwc_net import PWCNet
 from moving_object_detector_tpu_torch.ops import flow_corr_cuda
-from moving_object_detector_tpu_torch.utils import profiling
+from moving_object_detector_tpu_torch.utils import cuda_graphs, profiling
 
 torch.set_num_threads(2)
 
@@ -49,86 +49,21 @@ def _pair(h=H, w=W, seed=4):
     return img, img.roll(2, 1)
 
 
-class _Replayer:
-    """Stands in for ``torch.cuda.CUDAGraph``: ``replay`` runs the
-    captured function on the static inputs into the static output."""
-
-    def __init__(self, run, prev, now, out):
-        self.run, self.prev, self.now, self.out = run, prev, now, out
-
-    def replay(self):
-        self.out.copy_(self.run(self.prev, self.now))
-
-
-class _Stub(pipeline._FlowGraph):
-    """``_FlowGraph`` with the capture done on the CPU: a copy of the net,
-    static copies of the images, the eager flow returned, one segment and
-    no correlation cut out of it."""
-
-    captured = []
-
-    @classmethod
-    def capture(cls, flow_model, prev_img, now_img, input_scale,
-                corr_backend):
-        net = copy.deepcopy(flow_model)
-
-        def run(a, b):
-            return pipeline._flow_eager(net, a, b, input_scale, corr_backend)
-
-        prev, now = prev_img.clone(), now_img.clone()
-        first = run(prev, now)
-        out = torch.empty_like(first)
-        cls.captured.append(tuple(prev_img.shape))
-        return cls([_Replayer(run, prev, now, out)], [], net, prev, now,
-                   out, []), first
-
-
-@pytest.fixture(autouse=True)
-def graphs(monkeypatch):
-    """A process's graphs of its own for each test."""
-    fresh = {}
-    monkeypatch.setattr(pipeline, "_flow_graphs", fresh)
-    return fresh
-
-
 @pytest.fixture
 def stub(monkeypatch):
-    monkeypatch.setattr(pipeline, "_FlowGraph", _Stub)
-    monkeypatch.setattr(_Stub, "captured", [])
-    return _Stub
+    """The stub graph in place, empty caches, the routing as on a card."""
+    graph_stub.as_on_a_card(monkeypatch)
+    return graph_stub.install(monkeypatch)
+
+
+def _captured(stub):
+    """The image shape of each flow capture."""
+    return [tuple(static[1].shape) for name, static in stub.captured
+            if name == "flow"]
 
 
 def _graphed(net, prev, now, scale=1, backend=None):
-    return pipeline._graphed_flow(net, prev, now, scale, backend)
-
-
-def test_cpu_images_build_no_graph_and_count_zero(graphs):
-    net = _net()
-    prev, now = _pair()
-    with profiling.recording() as rec:
-        profiling.set_unit(3)
-        flow = pipeline._flow_forward(net, prev, now)
-    assert not graphs
-    assert rec.counters[("flow_graph_captures", 3)] == 0
-    assert rec.counters[("flow_graph_replays", 3)] == 0
-    assert ("flow_graph_replays", 3) in rec.counters
-    assert torch.equal(flow, pipeline._flow_eager(net, prev, now))
-
-
-def test_routing_follows_device_and_autograd():
-    """CUDA images replay a graph whatever the grad mode, unless autograd
-    tracks one of them; CPU images never do."""
-    def img(device, requires_grad=False):
-        return types.SimpleNamespace(device=torch.device(device),
-                                     requires_grad=requires_grad)
-
-    cuda, cpu = img("cuda"), img("cpu")
-    assert pipeline._graphable(cuda, cuda)
-    with torch.no_grad():
-        assert pipeline._graphable(cuda, img("cuda", True))
-    assert not pipeline._graphable(cuda, img("cuda", True))
-    assert not pipeline._graphable(img("cuda", True), cuda)
-    assert not pipeline._graphable(cpu, cpu)
+    return pipeline._flow_forward(net, prev, now, scale, backend)
 
 
 @pytest.mark.parametrize("scale", [1, 2])
@@ -143,7 +78,7 @@ def test_replays_are_bitwise_the_eager_flow(stub, scale):
         for k, (prev, now) in enumerate(pairs):
             profiling.set_unit(k)
             flows.append(_graphed(net, prev, now, scale))
-    assert stub.captured == [(H, W)]
+    assert _captured(stub) == [(H, W)]
     for (prev, now), flow in zip(pairs, flows):
         assert torch.equal(flow, pipeline._flow_eager(net, prev, now, scale))
     assert [rec.counters[("flow_graph_captures", k)] for k in range(4)] == [
@@ -162,6 +97,16 @@ class _Segment:
         self.log.append(("segment", self.k))
 
 
+def _flow_graph(net, segments, cuts, hw, **kw):
+    """A ``cuda_graphs.Graph`` as the flow stage captures it: a copy of
+    ``net``'s parameters and buffers and two images as its inputs, a flow
+    as its output."""
+    inputs = pipeline._state_tensors(copy.deepcopy(net)) + [
+        torch.zeros(hw), torch.zeros(hw)]
+    return cuda_graphs.Graph(segments, cuts, inputs,
+                             torch.full(hw + (2,), 7.0), **kw)
+
+
 def test_a_replay_launches_each_correlation_between_its_segments(
         monkeypatch):
     """Segment k, then the correlation cut after it through the module's
@@ -172,8 +117,10 @@ def test_a_replay_launches_each_correlation_between_its_segments(
     prev, now = _pair()
     log = []
     feats = [torch.rand(1, 3, 4, 6) for _ in range(4)]
-    corrs = [(feats[0], feats[1], 1, torch.zeros(1, 9, 4, 6)),
-             (feats[2], feats[3], 2, torch.zeros(1, 25, 4, 6))]
+    corrs = [(flow_corr_cuda, "corr_forward", (feats[0], feats[1], 1),
+              torch.zeros(1, 9, 4, 6)),
+             (flow_corr_cuda, "corr_forward", (feats[2], feats[3], 2),
+              torch.zeros(1, 25, 4, 6))]
     real = flow_corr_cuda.corr_forward
 
     def logged(f1, f2, search_range, out=None):
@@ -181,21 +128,21 @@ def test_a_replay_launches_each_correlation_between_its_segments(
         return real(f1, f2, search_range, out=out)
 
     monkeypatch.setattr(flow_corr_cuda, "corr_forward", logged)
-    out = torch.full((H, W, 2), 7.0)
-    graph = pipeline._FlowGraph([_Segment(log, k) for k in range(3)], corrs,
-                                copy.deepcopy(net), torch.zeros(H, W),
-                                torch.zeros(H, W), out, [])
+    graph = _flow_graph(net, [_Segment(log, k) for k in range(3)], corrs,
+                        (H, W))
     with torch.no_grad():
         net.estimators[0].flow_head.bias.add_(1.0)
-    got = graph(net, prev, now)
+    got = graph((pipeline._state_tensors(net), prev, now))
     assert log == [("segment", 0), ("corr", 1), ("segment", 1), ("corr", 2),
                    ("segment", 2)]
-    for f1, f2, r, buf in corrs:
-        assert torch.equal(buf, flow_corr_cuda.corr_forward(f1, f2, r))
-    assert torch.equal(graph.prev, prev) and torch.equal(graph.now, now)
-    assert all(torch.equal(a, b) for a, b in zip(graph.params,
+    for _, _, args, buf in corrs:
+        assert torch.equal(buf, real(*args))
+    assert torch.equal(graph.inputs[-2], prev)
+    assert torch.equal(graph.inputs[-1], now)
+    assert all(torch.equal(a, b) for a, b in zip(graph.inputs,
                                                  net.parameters()))
-    assert torch.equal(got, out) and got.data_ptr() != out.data_ptr()
+    assert torch.equal(got, graph.outputs)
+    assert got.data_ptr() != graph.outputs.data_ptr()
 
 
 def test_corr_forward_writes_into_out():
@@ -245,38 +192,16 @@ def test_a_replay_reads_the_callers_current_parameters(stub, how):
     for a, b in ((prev, now), (now, prev)):
         flow = _graphed(net, a, b)
         assert torch.equal(flow, pipeline._flow_eager(net, a, b))
-    assert len(stub.captured) == 1
+    assert len(_captured(stub)) == 1
 
 
-def test_past_the_bound_signatures_run_eagerly_and_no_graph_is_freed(
-        stub, graphs):
-    net = _net()
-    widths = [W + 8 * i for i in range(pipeline.FLOW_GRAPHS + 2)]
-    kept = []
-    for w in widths:
-        with profiling.recording() as rec:
-            profiling.set_unit(0)
-            prev, now = _pair(H, w)
-            flow = _graphed(net, prev, now)
-        assert torch.equal(flow, pipeline._flow_eager(net, prev, now))
-        kept.append(rec.counters[("flow_graph_captures", 0)])
-        assert rec.counters[("flow_graph_replays", 0)] == 0
-    n = pipeline.FLOW_GRAPHS
-    assert kept == [1] * n + [0, 0]
-    first = list(graphs.values())
-    assert len(first) == n
-    _graphed(net, *_pair(H, widths[0]))
-    _graphed(net, *_pair(H, widths[-1]))
-    assert list(graphs.values()) == first and len(stub.captured) == n
-
-
-def test_a_graph_keeps_no_reference_to_the_callers_net(stub, graphs):
+def test_a_graph_keeps_no_reference_to_the_callers_net(stub):
     net = _net()
     _graphed(net, *_pair())
     gone = weakref.ref(net)
     del net
     gc.collect()
-    assert gone() is None and len(graphs) == 1
+    assert gone() is None and len(pipeline._flow_cache.graphs) == 1
 
 
 def _tiny_step_inputs():
@@ -296,11 +221,10 @@ def _tiny_step_inputs():
     return config, stereo, state, left, right
 
 
-def test_detect_step_takes_the_cache_unless_flow_is_given(stub, monkeypatch):
-    """With the routing forced to the graph (as on a card), a step runs
-    its flow through the cache; a step given ``flow_override`` does not,
-    and counts neither counter."""
-    monkeypatch.setattr(pipeline, "_graphable", lambda a, b: True)
+def test_detect_step_takes_the_cache_unless_flow_is_given(stub):
+    """With the routing as on a card, a step runs its flow through the
+    cache; a step given ``flow_override`` does not, and counts neither
+    counter."""
     net = _net()
     config, stereo, state, left, right = _tiny_step_inputs()
     with profiling.recording() as rec:
@@ -308,7 +232,7 @@ def test_detect_step_takes_the_cache_unless_flow_is_given(stub, monkeypatch):
                                            stereo, config)
         pipeline.detect_step(net, state1, left, right, 0.1, stereo, config,
                              flow_override=torch.zeros(H, W, 2))
-    assert stub.captured == [(H, W)]
+    assert _captured(stub) == [(H, W)]
     assert torch.equal(out.flow, pipeline._flow_eager(
         net, state.prev_left, left, config.flow_input_scale))
     assert rec.counters[("flow_graph_captures", 0)] == 1
@@ -350,15 +274,13 @@ def test_a_replay_copies_buffers_with_the_parameters():
     assert all(a is b for a, b in zip(listed, params + buffers))
     assert any(t is net.cnet.norm1.running_mean for t in listed)
     prev, now = _pair(64, 64)
-    graph = pipeline._FlowGraph([_Segment([], 0)], [], copy.deepcopy(net),
-                                torch.zeros(64, 64), torch.zeros(64, 64),
-                                torch.zeros(64, 64, 2), [])
+    graph = _flow_graph(net, [_Segment([], 0)], [], (64, 64))
     with torch.no_grad():
         net.cnet.norm1.running_mean.add_(1.0)
         net.cnet.layer2[0].norm3.running_var.mul_(3.0)
-    graph(net, prev, now)
+    graph((pipeline._state_tensors(net), prev, now))
     assert all(torch.equal(a, b) for a, b in zip(
-        graph.params, pipeline._state_tensors(net)))
+        graph.inputs, pipeline._state_tensors(net)))
 
 
 def test_a_replay_launches_each_lookup_between_its_segments(monkeypatch):
@@ -375,8 +297,9 @@ def test_a_replay_launches_each_lookup_between_its_segments(monkeypatch):
     log = []
     f1, f2 = torch.rand(2, 1, 8, 4, 6).unbind(0)
     pyr = correlation_pyramid(f1, f2, 2)
-    cuts = [pipeline._Lookup(pyr, coords_grid(1, 4, 6, "cpu") + k, 4,
-                             torch.zeros(1, 162, 4, 6)) for k in range(2)]
+    cuts = [(raft_lookup_cuda, "raft_lookup",
+             (pyr, coords_grid(1, 4, 6, "cpu") + k, 4),
+             torch.zeros(1, 162, 4, 6)) for k in range(2)]
     real = raft_lookup_cuda.raft_lookup
 
     def logged(pyramid, coords, radius, out=None):
@@ -384,18 +307,17 @@ def test_a_replay_launches_each_lookup_between_its_segments(monkeypatch):
         return real(pyramid, coords, radius, out=out)
 
     monkeypatch.setattr(raft_lookup_cuda, "raft_lookup", logged)
-    graph = pipeline._FlowGraph(
-        [_Segment(log, k) for k in range(3)], cuts, copy.deepcopy(net),
-        torch.zeros(64, 64), torch.zeros(64, 64), torch.zeros(64, 64, 2),
-        [], counters={"raft_iterations": 2, "raft_lookups": 2})
+    graph = _flow_graph(net, [_Segment(log, k) for k in range(3)], cuts,
+                        (64, 64),
+                        counters={"raft_iterations": 2, "raft_lookups": 2},
+                        spans=net.replay_spans)
     with profiling.recording() as rec:
         profiling.set_unit(5)
-        graph(net, prev, now)
+        graph((pipeline._state_tensors(net), prev, now))
     assert log == [("segment", 0), ("lookup", 2), ("segment", 1),
                    ("lookup", 2), ("segment", 2)]
-    for cut in cuts:
-        assert torch.equal(cut.out, raft_lookup_cuda.raft_lookup_plain(
-            cut.pyramid, cut.coords, 4))
+    for _, _, args, buf in cuts:
+        assert torch.equal(buf, raft_lookup_cuda.raft_lookup_plain(*args))
     assert rec.counters[("raft_iterations", 5)] == 2
     assert rec.counters[("raft_lookups", 5)] == 2
     assert [s.name for s in rec.spans()] == ["raft_encode", "raft_update"]

@@ -24,6 +24,7 @@ MODULES = ("config", "types", "tunables", "_build", "ops.geometry",
            "ops.gauss_newton_cuda", "ops.raft_lookup_cuda", "models.raft",
            "ops.image", "ops.assignment", "models.pwc_net",
            "utils.checkpoint", "utils.profiling", "utils.frames",
+           "utils.cuda_graphs", "utils.trees",
            "egomotion", "sceneflow", "clusterer", "tracker", "pipeline",
            "eval", "io", "io.readers", "io.viz", "io.frame_ring",
            "io.scenes", "io.dashboard", "io.runner", "run", "parallel",

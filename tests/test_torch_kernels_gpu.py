@@ -1347,7 +1347,7 @@ def test_flow_graph_is_bitwise_the_eager_flow_over_serving_pairs(
     model, backend = _pwc_v7(cuda)
     imgs = [torch.from_numpy(a).to(cuda) for a, _ in _patch_frames(9)]
     key = pipeline._flow_key(model, imgs[0], imgs[1], 2, backend)
-    fresh = int(key not in pipeline._flow_graphs)
+    fresh = int(key not in pipeline._flow_cache.graphs)
     flows, eager, corr, calls = [], [], [], []
     real = flow_corr_cuda.corr_forward
 
@@ -1377,7 +1377,7 @@ def test_flow_graph_is_bitwise_the_eager_flow_over_serving_pairs(
         1 - fresh] + [1] * 7
     for k, (a, b) in enumerate(zip(flows, eager)):
         assert a.shape == (376, 1242, 2) and torch.equal(a, b), k
-    assert key in pipeline._flow_graphs
+    assert key in pipeline._flow_cache.graphs
 
 
 def test_flow_graph_per_shape_and_the_callers_parameters(cuda):
@@ -1398,7 +1398,7 @@ def test_flow_graph_per_shape_and_the_callers_parameters(cuda):
                                                      backend))
 
     def graphs():
-        return {id(g) for g in pipeline._flow_graphs.values()}
+        return {id(g) for g in pipeline._flow_cache.graphs.values()}
 
     flow(model, a, b)
     flow(model, b, a)
@@ -1407,7 +1407,8 @@ def test_flow_graph_per_shape_and_the_callers_parameters(cuda):
     flow(model, d, c, 1)
     two = graphs()
     assert one <= two and len(two - one) <= 1
-    assert pipeline._flow_key(model, c, d, 1, backend) in pipeline._flow_graphs
+    assert (pipeline._flow_key(model, c, d, 1, backend)
+            in pipeline._flow_cache.graphs)
     with torch.no_grad():
         model.context.residual.bias.add_(0.25)
     flow(model, a, b)
@@ -1494,7 +1495,7 @@ def raft_graphs(monkeypatch):
     from moving_object_detector_tpu_torch import pipeline
 
     fresh = {}
-    monkeypatch.setattr(pipeline, "_flow_graphs", fresh)
+    monkeypatch.setattr(pipeline._flow_cache, "graphs", fresh)
     yield fresh
     _RAFT_GRAPHS.extend(fresh.values())
 
@@ -1631,9 +1632,9 @@ def _reference_track(state, t, dets, frame_valid, cfg):
 
 
 def _same_bits(a, b):
-    from moving_object_detector_tpu_torch.tracker import _leaves
+    from moving_object_detector_tpu_torch.utils.trees import leaves
 
-    la, lb = _leaves(a), _leaves(b)
+    la, lb = leaves(a), leaves(b)
     return len(la) == len(lb) and all(
         x.dtype == y.dtype and x.shape == y.shape
         and x.cpu().numpy().tobytes() == y.cpu().numpy().tobytes()
@@ -1653,7 +1654,7 @@ def test_tracker_graph_is_bitwise_the_eager_stage_over_serving_pairs(cuda):
         TrackerConfig,
     )
     from moving_object_detector_tpu_torch.tunables import Tunables
-    from moving_object_detector_tpu_torch.utils import profiling
+    from moving_object_detector_tpu_torch.utils import profiling, trees
     from portbench.reference.config import TrackerConfig as RefConfig
 
     cfg = TrackerConfig()
@@ -1663,7 +1664,7 @@ def test_tracker_graph_is_bitwise_the_eager_stage_over_serving_pairs(cuda):
                  correction_count_limit=tun.correction_count_limit)
     frames = _tracker_frames(cuda)
     key = (frames[0][0].device, 64, 16, cfg)
-    fresh = int(key not in tracker._tracker_graphs)
+    fresh = int(key not in tracker._tracker_cache.graphs)
     state = eager = ref = tracker.TrackerState.create(64, cuda)
     kept = []
     with profiling.recording() as rec:
@@ -1678,17 +1679,17 @@ def test_tracker_graph_is_bitwise_the_eager_stage_over_serving_pairs(cuda):
             plain = _reference_track(ref, t, dets, frame_valid, RefConfig())
             assert _same_bits(out, want), k
             assert _same_bits(out, plain), k
-            kept.append(([x.clone() for x in tracker._leaves(out)], out))
+            kept.append(([x.clone() for x in trees.leaves(out)], out))
             state, eager, ref = out[0], want[0], plain[0]
     for k, (copies, out) in enumerate(kept):
         assert all(torch.equal(a, b)
-                   for a, b in zip(copies, tracker._leaves(out))), k
+                   for a, b in zip(copies, trees.leaves(out))), k
     n = len(frames)
     assert [rec.counters[("tracker_graph_captures", k)]
             for k in range(n)] == [fresh] + [0] * (n - 1)
     assert [rec.counters[("tracker_graph_replays", k)]
             for k in range(n)] == [1 - fresh] + [1] * (n - 1)
-    assert int(state.next_id) >= 6 and key in tracker._tracker_graphs
+    assert int(state.next_id) >= 6 and key in tracker._tracker_cache.graphs
     assert any(bool(o[1].objects.valid.any()) for _, o in kept)
 
 
@@ -1698,6 +1699,7 @@ def test_replayed_tracker_makes_no_host_wait(cuda):
     its own after the next replay."""
     from moving_object_detector_tpu_torch import tracker
     from moving_object_detector_tpu_torch.config import TrackerConfig
+    from moving_object_detector_tpu_torch.utils import trees
 
     cfg = TrackerConfig()
     frames = _tracker_frames(cuda)
@@ -1718,8 +1720,8 @@ def test_replayed_tracker_makes_no_host_wait(cuda):
             outs.append((state, tracked))
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    first = [x.clone() for x in tracker._leaves(outs[0])]
+    first = [x.clone() for x in trees.leaves(outs[0])]
     assert all(torch.equal(a, b)
-               for a, b in zip(first, tracker._leaves(outs[0])))
+               for a, b in zip(first, trees.leaves(outs[0])))
     assert not any(a.data_ptr() == b.data_ptr() for a, b in zip(
-        tracker._leaves(outs[0]), tracker._leaves(outs[1])))
+        trees.leaves(outs[0]), trees.leaves(outs[1])))

@@ -2,15 +2,10 @@
 the plain reference (``portbench/reference/tracker.py``, the branch on
 ``frame_valid`` as its ``step.run_frame`` takes it) and the JAX package's
 tracker within ``tests/test_torch_detect.py``'s tolerances, over
-``tests/tracker_cases.py``'s sequences; no wait for the device; and the
-graph cache (``tracker._graphed_track``) with a stand-in graph.
-
-A CUDA graph needs a card. Here ``tracker._TrackerGraph`` is replaced by
-``_Stub``, which keeps the real replay (``_TrackerGraph.__call__``)
-around a stand-in graph whose ``replay`` recomputes the stage into the
-static outputs, as the card's graph rewrites its pool. The card's own
-graphs are held bitwise to the eager stage in
-``tests/test_torch_kernels_gpu.py``.
+``tests/tracker_cases.py``'s sequences; no wait for the device. Its CUDA
+graph's routing, bound, copy in and copy out are held, with the flow
+stage's, in ``tests/test_torch_cuda_graphs.py``; the card's own graphs
+bitwise to the eager stage in ``tests/test_torch_kernels_gpu.py``.
 """
 
 import jax.numpy as jnp
@@ -24,8 +19,7 @@ from moving_object_detector_tpu.types import MovingObjects as JObj
 from moving_object_detector_tpu_torch import tracker as ttr
 from moving_object_detector_tpu_torch.config import TrackerConfig as TTrCfg
 from moving_object_detector_tpu_torch.types import MovingObjects as TObj
-from moving_object_detector_tpu_torch.types import _map_tensors
-from moving_object_detector_tpu_torch.utils import profiling
+from moving_object_detector_tpu_torch.utils import profiling, trees
 from portbench.reference import tracker as rtr
 from portbench.reference import types as rtypes
 from portbench.reference.config import TrackerConfig as RTrCfg
@@ -43,7 +37,7 @@ def _dets(cls, frame, conv):
 
 def _equal(a, b):
     """Every tensor of two trees bitwise equal (NaN equal to NaN)."""
-    la, lb = ttr._leaves(a), ttr._leaves(b)
+    la, lb = trees.leaves(a), trees.leaves(b)
     assert len(la) == len(lb)
     for x, y in zip(la, lb):
         assert x.dtype == y.dtype and x.shape == y.shape
@@ -107,7 +101,7 @@ SHOWS = {
     "frame_invalid": lambda h: (
         int(h[0][0].next_id) == 0
         and all(x.numpy().tobytes() == y.numpy().tobytes() for x, y in zip(
-            ttr._leaves(h[5][0]), ttr._leaves(h[4][0])))
+            trees.leaves(h[5][0]), trees.leaves(h[4][0])))
         and not h[5][1].objects.valid.any()
         and bool(h[4][1].objects.valid.any())),
     "serving": lambda h: (int(h[-1][0].next_id) >= 6
@@ -160,99 +154,5 @@ def test_track_frame_waits_for_nothing_and_counts_no_graph_on_the_cpu():
         assert rec.counters[("tracker_graph_captures", k)] == 0
         assert rec.counters[("tracker_graph_replays", k)] == 0
         assert ("tracker_graph_replays", k) in rec.counters
-    assert not ttr._tracker_graphs
+    assert not ttr._tracker_cache.graphs
 
-
-class _Replayer:
-    """Stands in for ``torch.cuda.CUDAGraph``: ``replay`` runs the stage on
-    the static inputs into the static outputs."""
-
-    def __init__(self, cfg, static, outputs):
-        self.cfg, self.static, self.outputs = cfg, static, outputs
-
-    def replay(self):
-        fresh = ttr._track_frame_eager(self.cfg, *self.static)
-        for dst, src in zip(ttr._leaves(self.outputs), ttr._leaves(fresh)):
-            dst.copy_(src)
-
-
-class _Stub(ttr._TrackerGraph):
-    """``_TrackerGraph`` with the capture done on the CPU: static copies of
-    the arguments, the eager result returned, outputs of its own."""
-
-    captured = []
-
-    @classmethod
-    def capture(cls, cfg, args):
-        static = _map_tensors(args, torch.clone)
-        inputs = ttr._leaves(static)
-        first = ttr._track_frame_eager(cfg, *static)
-        out = _map_tensors(first, torch.empty_like)
-        cls.captured.append(args[0].capacity)
-        return cls(_Replayer(cfg, static, out), inputs, out), first
-
-
-@pytest.fixture
-def stub(monkeypatch):
-    monkeypatch.setattr(ttr, "_tracker_graphs", {})
-    monkeypatch.setattr(ttr, "_TrackerGraph", _Stub)
-    monkeypatch.setattr(_Stub, "captured", [])
-    return _Stub
-
-
-def _args(state, frame, cfg):
-    return (state, torch.tensor(frame[0]),
-            _dets(TObj, frame, torch.from_numpy), torch.tensor(frame[-1]),
-            torch.tensor(cfg.object_radius),
-            torch.tensor(cfg.covariance_trace_limit),
-            torch.tensor(cfg.correction_count_limit, dtype=torch.int32))
-
-
-def test_graph_replays_copy_in_and_out(stub):
-    """The first call of a signature captures and returns the eager
-    result, the later ones replay: each bitwise the eager stage, each
-    returned result unchanged by the later replays, 1 capture then 1
-    replay a pair."""
-    make, cap = CASES["serving"]
-    cfg = TTrCfg(max_tracks=cap)
-    state = eager = ttr.TrackerState.create(cap, "cpu")
-    kept = []
-    with profiling.recording() as rec:
-        for k, frame in enumerate(make()):
-            profiling.set_unit(k)
-            out = ttr._graphed_track(cfg, _args(state, frame, cfg))
-            ref = ttr._track_frame_eager(cfg, *_args(eager, frame, cfg))
-            _equal(out, ref)
-            kept.append(([x.clone() for x in ttr._leaves(out)], out))
-            state, eager = out[0], ref[0]
-    for copies, out in kept:
-        assert all(torch.equal(a, b)
-                   for a, b in zip(copies, ttr._leaves(out)))
-    n = len(kept)
-    assert [rec.counters[("tracker_graph_captures", k)]
-            for k in range(n)] == [1] + [0] * (n - 1)
-    assert [rec.counters[("tracker_graph_replays", k)]
-            for k in range(n)] == [0] + [1] * (n - 1)
-    assert stub.captured == [cap]
-
-
-def test_graph_per_signature_and_the_bound(stub, monkeypatch):
-    """A second track capacity or configuration captures a second graph;
-    past ``TRACKER_GRAPHS`` a new signature runs eagerly, counted as
-    neither."""
-    monkeypatch.setattr(ttr, "TRACKER_GRAPHS", 2)
-    frame = CASES["adjacent_spawn"][0]()[0]
-    runs = [(8, TTrCfg(max_tracks=8)), (4, TTrCfg(max_tracks=4)),
-            (8, TTrCfg(max_tracks=8, object_radius=0.1)),
-            (8, TTrCfg(max_tracks=8))]
-    with profiling.recording() as rec:
-        for k, (cap, cfg) in enumerate(runs):
-            profiling.set_unit(k)
-            args = _args(ttr.TrackerState.create(cap, "cpu"), frame, cfg)
-            _equal(ttr._graphed_track(cfg, args),
-                   ttr._track_frame_eager(cfg, *args))
-    assert stub.captured == [8, 4]
-    assert len(ttr._tracker_graphs) == 2
-    assert [(rec.counters[("tracker_graph_captures", k)],
-             rec.counters[("tracker_graph_replays", k)])
-            for k in range(4)] == [(1, 0), (1, 0), (0, 0), (0, 1)]
