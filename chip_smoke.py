@@ -1937,21 +1937,22 @@ def read_counts() -> dict:
     return {k: v for c in kernel_counters() for k, v in c.items()}
 
 
-LK_CALLS = [0]  # egomotion.lk_track calls, counted by count_lk_calls
+LK_CALLS = [0]  # ego-motion's LK runs, counted by count_lk_calls
 
 
 def count_lk_calls() -> None:
-    """Count the LK fallback's tracking calls (``estimate_motion`` looks
-    ``lk_track`` up in its module at each call)."""
+    """Count ego-motion's LK runs: calls of its LK graph cache, which runs
+    the LK half eagerly, captures it or replays it (``estimate_motion``
+    looks ``_lk_cache`` up in its module at each call)."""
     from moving_object_detector_tpu_torch import egomotion
 
-    real = egomotion.lk_track
+    real = egomotion._lk_cache
 
     def counted(*args, **kwargs):
         LK_CALLS[0] += 1
         return real(*args, **kwargs)
 
-    egomotion.lk_track = counted
+    egomotion._lk_cache = counted
 
 
 @contextlib.contextmanager
@@ -1959,10 +1960,28 @@ def plain_gauss_newton():
     """Ego-motion's RANSAC and Gauss-Newton solves in their plain forms, on
     the card too: the yardstick the kernels' path is held against."""
     from moving_object_detector_tpu_torch.ops import gauss_newton_cuda as gn
+    from moving_object_detector_tpu_torch.utils import cuda_graphs
 
     real, real_ransac = gn.solve_pose, gn.ransac_solve
+
+    def plain_ransac(pts3d, tracked, feat_valid, cam, sample_idx, cfg,
+                     threads=None, out=None):
+        # Cut out of a capture like the kernel, so no graph keeps the
+        # plain form; a replay's cut calls it with the graph's buffers.
+        cut = cuda_graphs.cut_point(
+            gn.__name__, "ransac_solve",
+            (pts3d, tracked, feat_valid, cam, sample_idx, cfg),
+            ((4, 4), (), ()), (torch.float32, torch.bool, torch.int32),
+            pts3d.device)
+        if cut is not None:
+            return cut
+        result = gn.ransac_solve_plain(pts3d, tracked, feat_valid, cam,
+                                       sample_idx, cfg)
+        return result if out is None else tuple(
+            o.copy_(r) for o, r in zip(out, result))
+
     gn.solve_pose = lambda *a, **k: gn.solve_pose_plain(*a, **k)
-    gn.ransac_solve = lambda *a, **k: gn.ransac_solve_plain(*a, **k)
+    gn.ransac_solve = plain_ransac
     try:
         yield
     finally:
@@ -2352,29 +2371,36 @@ def run_clusterer_branches(model, config, stereo, frames, outs, plain_scene,
 
 def check_serving_gauss_newton(model, config, stereo, frames, dev) -> None:
     """The RANSAC and Gauss-Newton kernels on the serving frames'
-    correspondences: every ``_ransac_gn_solve`` call of a run over the
-    frames is recorded and repeated with one draw of hypotheses, on the
-    RANSAC kernel and on its plain version: the same success, the motion
-    within TOL_GN_MOTION; and the hypotheses alone on the Gauss-Newton
-    kernel within 1e-4 of the plain solve on the sound triples."""
+    correspondences: every RANSAC launch of a run over the frames (a call
+    of ``ransac_solve``, eager or between an ego-motion graph's segments)
+    is recorded and repeated with one draw of hypotheses, on the RANSAC
+    kernel and on its plain version: the same success, the motion within
+    TOL_GN_MOTION; and the hypotheses alone on the Gauss-Newton kernel
+    within 1e-4 of the plain solve on the sound triples."""
     from gauss_newton_cases import sound
-    from moving_object_detector_tpu_torch import egomotion
     from moving_object_detector_tpu_torch.ops import gauss_newton_cuda as gn
 
     recorded = []
-    real = egomotion._ransac_gn_solve
+    real_solve = gn.ransac_solve
 
-    def record(pts3d, tracked, feat_valid, cam, generator, cfg,
-               sample_idx=None):
-        recorded.append((pts3d, tracked, feat_valid, cam, cfg))
-        return real(pts3d, tracked, feat_valid, cam, generator, cfg,
-                    sample_idx)
+    def record(pts3d, tracked, feat_valid, cam, sample_idx, cfg, *args,
+               **kwargs):
+        if not torch.cuda.is_current_stream_capturing():
+            # A graph's buffers: their values of this launch, kept.
+            recorded.append(tuple(x.clone() for x in (
+                pts3d, tracked, feat_valid, cam)) + (cfg,))
+        return real_solve(pts3d, tracked, feat_valid, cam, sample_idx, cfg,
+                          *args, **kwargs)
 
-    egomotion._ransac_gn_solve = record
+    gn.ransac_solve = record
     try:
         run_frames(model, config, stereo, frames, dev)
     finally:
-        egomotion._ransac_gn_solve = real
+        gn.ransac_solve = real_solve
+
+    def real(pts3d, tracked, feat_valid, cam, cfg, idx):
+        return gn.ransac_solve(pts3d, tracked, feat_valid, cam, idx, cfg)
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
     worst = worst_hyp = 0.0
@@ -2385,16 +2411,16 @@ def check_serving_gauss_newton(model, config, stereo, frames, dev) -> None:
             torch.clamp(feat_valid.float(), min=1e-20).expand(
                 cfg.ransac_hypotheses, n), cfg.ransac_sample,
             replacement=False, generator=gen)
-        kernel = real(pts3d, tracked, feat_valid, cam, None, cfg, idx)
+        kernel = real(pts3d, tracked, feat_valid, cam, cfg, idx)
         with plain_gauss_newton():
-            plain = real(pts3d, tracked, feat_valid, cam, None, cfg, idx)
+            plain = real(pts3d, tracked, feat_valid, cam, cfg, idx)
         if bool(kernel[1]) != bool(plain[1]):
             raise AssertionError(f"serving RANSAC: success {bool(kernel[1])}"
                                  f" on the kernel, {bool(plain[1])} plain")
         worst = max(worst, float((kernel[0] - plain[0]).abs().max()))
         counts.append((int(kernel[2]), int(plain[2])))
         args = (pts3d[idx], tracked[idx], torch.ones(idx.shape, device=dev),
-                gn.camera_vector(cam), cfg.gn_iters_hypothesis)
+                cam, cfg.gn_iters_hypothesis)
         hk, hp = gn.solve_pose(*args), gn.solve_pose_plain(*args)
         keep = sound(*(x.cpu().numpy() for x in (hp,) + args[:3]),
                      cam=args[3].tolist())

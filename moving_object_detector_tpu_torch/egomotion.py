@@ -6,12 +6,20 @@ the whole RANSAC is one call of ``ops/gauss_newton_cuda.ransac_solve``,
 one kernel launch on the card.
 
 Returns the camera motion M with p_now = M @ p_prev. All math is f32.
-Hypotheses are drawn with ``torch.multinomial`` from an explicit
-``torch.Generator``; JAX's ``random.choice`` stream cannot be
+Hypotheses are drawn as ``torch.multinomial`` draws them from an
+explicit ``torch.Generator``; JAX's ``random.choice`` stream cannot be
 reproduced, so ``_ransac_gn_solve`` also takes the sample indices.
+
+On the card the stage replays CUDA graphs (``utils/cuda_graphs.py``), one
+a signature: ``_dense_half`` on every pair that has a dense flow, and
+``_lk_half`` on the pairs whose fallback flag the host reads as set (or
+``_lk_only`` without a dense flow); each RANSAC launches between the
+graphs, and both halves draw from one generator a device.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -19,7 +27,7 @@ import torch.nn.functional as F
 from .config import EgoMotionConfig
 from .ops import gauss_newton_cuda, geometry
 from .types import CameraModel, DisparityImage
-from .utils import profiling
+from .utils import cuda_graphs, profiling
 
 
 def _box_sum(x: torch.Tensor, size: int) -> torch.Tensor:
@@ -125,8 +133,7 @@ def _lk_patch_track(prev_img, now_img, pts_prev, guess, half: int,
     dy, dx = torch.meshgrid(r, r, indexing="ij")
     offs = torch.stack([dx, dy], dim=-1).reshape(-1, 2)
     coords0 = pts_prev[:, None, :] + offs[None]  # (K, P, 2)
-    ex = torch.tensor([1.0, 0.0], device=dev)
-    ey = torch.tensor([0.0, 1.0], device=dev)
+    ex, ey = torch.eye(2, dtype=torch.float32, device=dev)  # no host copy
     template = geometry.bilinear_sample(prev_img, coords0)
     gx = (geometry.bilinear_sample(prev_img, coords0 + ex)
           - geometry.bilinear_sample(prev_img, coords0 - ex)) * 0.5
@@ -178,6 +185,17 @@ def _solve_pose(pts3d, obs_uv, weights, cam: CameraModel, iters: int):
         pts3d, obs_uv, weights, gauss_newton_cuda.camera_vector(cam), iters)
 
 
+def _draw(p, sample: int, generator):
+    """``torch.multinomial(p, sample, replacement=False, generator=
+    generator)`` without its checks of ``p`` (host reads in some torch
+    versions, device asserts and their launches in others; ``p`` is
+    floored above 0, so they cannot fail): ATen's draw after them, the
+    ``sample`` largest of p / q for q ~ Exp(1), the same indices for the
+    same generator state."""
+    q = torch.empty_like(p).exponential_(1, generator=generator)
+    return torch.topk(p / q, sample).indices
+
+
 def _ransac_gn_solve(pts3d, tracked, feat_valid, cam, generator,
                      cfg: EgoMotionConfig, sample_idx=None):
     """RANSAC over 3-point Gauss-Newton hypotheses plus the two-pass
@@ -190,15 +208,86 @@ def _ransac_gn_solve(pts3d, tracked, feat_valid, cam, generator,
     inject the JAX package's indices."""
     if sample_idx is None:
         # Weighted sampling without replacement over the valid features.
-        # The floor keeps multinomial defined when fewer than `sample`
+        # The floor keeps the draw defined when fewer than `sample`
         # features are valid (such a frame fails min_inliers anyway).
         p = torch.clamp(feat_valid.float(), min=1e-20)
-        sample_idx = torch.multinomial(
-            p.expand(cfg.ransac_hypotheses, pts3d.shape[0]),
-            cfg.ransac_sample, replacement=False, generator=generator)
+        sample_idx = _draw(p.expand(cfg.ransac_hypotheses, pts3d.shape[0]),
+                           cfg.ransac_sample, generator)
     return gauss_newton_cuda.ransac_solve(
         pts3d, tracked, feat_valid, gauss_newton_cuda.camera_vector(cam),
         sample_idx.to(pts3d.device).long(), cfg)
+
+
+def _features(prev_left, disparity_prev: DisparityImage, cam: CameraModel,
+              cfg: EgoMotionConfig, border):
+    """The features of ``prev_left`` with a depth: (K, 2) pixels, (K, 3)
+    points, (K,) validity."""
+    depth_prev = geometry.disparity_to_depth(disparity_prev)
+    pts, feat_valid = select_features(
+        prev_left, torch.isfinite(depth_prev), cfg, border=border)
+    ui = torch.round(pts[:, 0]).to(torch.int64)
+    vi = torch.round(pts[:, 1]).to(torch.int64)
+    z, zin = geometry.gather_pixels(depth_prev, ui, vi)
+    feat_valid = feat_valid & zin & torch.isfinite(z)
+    z = torch.where(torch.isfinite(z), z, torch.ones_like(z))
+    x3 = (pts[:, 0] - cam.cx) / cam.fx * z
+    y3 = (pts[:, 1] - cam.cy) / cam.fy * z
+    return pts, torch.stack([x3, y3, z], dim=1), feat_valid
+
+
+def _dense_half(cfg: EgoMotionConfig, generator, sample_idx, prev_left,
+                disparity_prev, cam, dense_flow):
+    """The motion from the dense flow's correspondences: ((motion, success,
+    count), the LK fallback's 0-d bool flag, (pixels, points, validity) of
+    the features for ``_lk_half``)."""
+    pts, pts3d, feat_valid_pre_track = _features(prev_left, disparity_prev,
+                                                 cam, cfg, border=2)
+    h, w = prev_left.shape
+    f = geometry.bilinear_sample(dense_flow, pts)
+    tracked = pts + f
+    track_ok = (torch.isfinite(f).all(dim=-1)
+                & (tracked[:, 0] >= 0) & (tracked[:, 0] <= w - 1)
+                & (tracked[:, 1] >= 0) & (tracked[:, 1] <= h - 1))
+    feat_valid = feat_valid_pre_track & track_ok
+    result = _ransac_gn_solve(pts3d, tracked, feat_valid, cam, generator,
+                              cfg, sample_idx)
+    n_valid = torch.clamp(feat_valid.sum(), min=1)
+    fall_back = result[2] < cfg.lk_fallback_frac * n_valid
+    return result, fall_back, (pts, pts3d, feat_valid_pre_track)
+
+
+def _lk_half(cfg: EgoMotionConfig, generator, sample_idx, prev_left,
+             now_left, cam, pts, pts3d, feat_valid):
+    """The motion from pyramidal-LK tracks of the features the LK window
+    reaches: (motion, success, count)."""
+    h, w = prev_left.shape
+    reach = cfg.lk_window * (2 ** (cfg.lk_pyramid_levels - 1)) + 2
+    in_reach = ((pts[:, 0] >= reach) & (pts[:, 0] < w - reach)
+                & (pts[:, 1] >= reach) & (pts[:, 1] < h - reach))
+    tracked, ok = lk_track(prev_left, now_left, pts, cfg)
+    return _ransac_gn_solve(pts3d, tracked, feat_valid & in_reach & ok, cam,
+                            generator, cfg, sample_idx)
+
+
+def _lk_only(cfg: EgoMotionConfig, generator, sample_idx, prev_left,
+             now_left, disparity_prev, cam):
+    """The motion from LK tracks alone (features inside the LK window's
+    reach, so ``_lk_half``'s mask keeps them all)."""
+    feats = _features(prev_left, disparity_prev, cam, cfg, border=None)
+    return _lk_half(cfg, generator, sample_idx, prev_left, now_left, cam,
+                    *feats)
+
+
+_dense_cache = cuda_graphs.GraphCache("egomotion")
+_lk_cache = cuda_graphs.GraphCache("egomotion_lk")
+_generators: dict = {}  # device -> the generator the graphs draw from
+
+
+def _graph_generator(device) -> torch.Generator:
+    g = _generators.get(device)
+    if g is None:
+        g = _generators[device] = torch.Generator(device=device)
+    return g
 
 
 def estimate_motion(prev_left, now_left, disparity_prev: DisparityImage,
@@ -212,47 +301,47 @@ def estimate_motion(prev_left, now_left, disparity_prev: DisparityImage,
     fewer than ``lk_fallback_frac`` of the valid features, the motion is
     re-derived from pyramidal-LK tracks (a Python branch on the fetched
     flag: one host sync per frame; counter ``egomotion_lk_fallbacks`` of
-    the frame, 0 or 1, while a span recorder is active)."""
-    depth_prev = geometry.disparity_to_depth(disparity_prev)
-    pts, feat_valid = select_features(
-        prev_left, torch.isfinite(depth_prev), cfg,
-        border=2 if dense_flow is not None else None)
-    ui = torch.round(pts[:, 0]).to(torch.int64)
-    vi = torch.round(pts[:, 1]).to(torch.int64)
-    z, zin = geometry.gather_pixels(depth_prev, ui, vi)
-    feat_valid = feat_valid & zin & torch.isfinite(z)
-    z = torch.where(torch.isfinite(z), z, torch.ones_like(z))
-    x3 = (pts[:, 0] - cam.cx) / cam.fx * z
-    y3 = (pts[:, 1] - cam.cy) / cam.fy * z
-    pts3d = torch.stack([x3, y3, z], dim=1)
-    feat_valid_pre_track = feat_valid
+    the frame, 0 or 1, while a span recorder is active).
 
+    CUDA inputs that autograd does not track, drawn from a CUDA
+    ``generator``, replay the process's CUDA graphs of this signature
+    (the device, the images' and the flow's shapes and dtypes, ``cfg``):
+    ``_dense_cache``'s of ``_dense_half``, then on a fallback
+    ``_lk_cache``'s of ``_lk_half`` (of ``_lk_only`` without a dense flow).
+    They draw from the device's own generator, given ``generator``'s state
+    before and handing its own back after, so the draws are the eager
+    stage's. Other inputs, and an injected ``sample_idx``, run the same
+    functions eagerly and count 0 captures and replays."""
+    images = [prev_left, now_left, disparity_prev.disparity]
     if dense_flow is not None:
-        h, w = prev_left.shape
-        f = geometry.bilinear_sample(dense_flow, pts)
-        tracked = pts + f
-        track_ok = (torch.isfinite(f).all(dim=-1)
-                    & (tracked[:, 0] >= 0) & (tracked[:, 0] <= w - 1)
-                    & (tracked[:, 1] >= 0) & (tracked[:, 1] <= h - 1))
+        images.append(dense_flow)
+    key, gen, graph_gens = None, generator, ()
+    if (sample_idx is None and isinstance(generator, torch.Generator)
+            and generator.device.type == prev_left.device.type
+            and cuda_graphs.graphable(*images)):
+        key = (prev_left.device, cfg) + tuple(
+            (tuple(x.shape), x.dtype) for x in images)
+        gen = _graph_generator(prev_left.device)
+        gen.set_state(generator.get_state())
+        graph_gens = (gen,)
+
+    def run(cache, fn, *args):
+        return cache(key, functools.partial(fn, cfg, gen, sample_idx), args,
+                     generators=graph_gens)
+
+    if dense_flow is None:
+        result = run(_lk_cache, _lk_only, prev_left, now_left,
+                     disparity_prev, cam)
     else:
-        tracked, track_ok = lk_track(prev_left, now_left, pts, cfg)
-    feat_valid = feat_valid & track_ok
-
-    motion, success, count = _ransac_gn_solve(
-        pts3d, tracked, feat_valid, cam, generator, cfg, sample_idx)
-
-    if dense_flow is not None and cfg.lk_fallback:
-        n_valid = torch.clamp(feat_valid.sum(), min=1)
-        with profiling.sync_point("egomotion_lk_fallback"):
-            fall_back = bool(count < cfg.lk_fallback_frac * n_valid)
-        profiling.count("egomotion_lk_fallbacks", int(fall_back))
-        if fall_back:
-            h_, w_ = prev_left.shape
-            reach = cfg.lk_window * (2 ** (cfg.lk_pyramid_levels - 1)) + 2
-            in_reach = ((pts[:, 0] >= reach) & (pts[:, 0] < w_ - reach)
-                        & (pts[:, 1] >= reach) & (pts[:, 1] < h_ - reach))
-            tracked_l, ok_l = lk_track(prev_left, now_left, pts, cfg)
-            motion, success, count = _ransac_gn_solve(
-                pts3d, tracked_l, feat_valid_pre_track & in_reach & ok_l,
-                cam, generator, cfg, sample_idx)
-    return motion, success, count
+        result, fall_back, feats = run(_dense_cache, _dense_half, prev_left,
+                                       disparity_prev, cam, dense_flow)
+        if cfg.lk_fallback:
+            with profiling.sync_point("egomotion_lk_fallback"):
+                fall_back = bool(fall_back)
+            profiling.count("egomotion_lk_fallbacks", int(fall_back))
+            if fall_back:
+                result = run(_lk_cache, _lk_half, prev_left, now_left, cam,
+                             *feats)
+    if key is not None:
+        generator.set_state(gen.get_state())
+    return result

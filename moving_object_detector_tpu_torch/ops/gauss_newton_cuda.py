@@ -30,6 +30,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..utils import cuda_graphs
 from . import geometry
 
 LAUNCHES = {"gauss_newton": 0, "ransac_gn": 0}
@@ -352,47 +353,57 @@ def _ticket(dev: torch.device, stream: int) -> torch.Tensor:
 
 
 def ransac_solve(pts3d, tracked, feat_valid, cam, sample_idx, cfg,
-                 threads: int = RANSAC_DEFAULT_THREADS):
+                 threads: int = RANSAC_DEFAULT_THREADS, out=None):
     """The RANSAC of ``egomotion._ransac_gn_solve`` from the hypothesis
     indices ``sample_idx`` (hypotheses, sample) int64 into the N features:
     ``pts3d`` (N, 3) and ``tracked`` (N, 2) f32, ``feat_valid`` (N,) bool,
     ``cam`` the (4,) vector of ``camera_vector``, ``cfg`` an
     ``EgoMotionConfig``. Returns (motion (4, 4) f32, success 0-d bool,
-    inlier count 0-d int32) on the inputs' device. For CUDA tensors one
-    launch of ``ransac_gn`` and no host sync (an index outside [0, N)
-    gives its hypothesis a NaN pose there), for CPU tensors the plain
-    version."""
+    inlier count 0-d int32) on the inputs' device, written into ``out``
+    where given (three such tensors). For CUDA tensors one launch of
+    ``ransac_gn`` and no host sync (an index outside [0, N) gives its
+    hypothesis a NaN pose there), cut out of a running graph capture
+    (``cuda_graphs.cut_point``); for CPU tensors the plain version."""
     _check_ransac(pts3d, tracked, feat_valid, cam, sample_idx, threads)
     if pts3d.device.type == "cpu":
-        return ransac_solve_plain(pts3d, tracked, feat_valid, cam,
-                                  sample_idx, cfg)
+        result = ransac_solve_plain(pts3d, tracked, feat_valid, cam,
+                                    sample_idx, cfg)
+        return result if out is None else tuple(
+            o.copy_(r) for o, r in zip(out, result))
     n = pts3d.shape[0]
     _refuse_beyond_smem(ransac_smem_bytes(n, threads), n, "ransac_solve",
                         POINT_BYTES + 1)
     dev = pts3d.device
     if dev.type != "cuda":
         raise ValueError("the RANSAC kernel takes CUDA tensors")
+    pts3d, tracked, feat_valid, cam, sample_idx = (
+        x.contiguous() for x in (pts3d, tracked, feat_valid, cam,
+                                 sample_idx))
+    cut = cuda_graphs.cut_point(
+        __name__, "ransac_solve",
+        (pts3d, tracked, feat_valid, cam, sample_idx, cfg, threads),
+        ((4, 4), (), ()), (torch.float32, torch.bool, torch.int32), dev)
+    if cut is not None:
+        return cut
     stream = torch.cuda.current_stream(dev).cuda_stream
     return _launch_ransac(pts3d, tracked, feat_valid, cam, sample_idx, cfg,
-                          threads, stream, _ticket(dev, stream))
+                          threads, stream, _ticket(dev, stream), out)
 
 
 def _launch_ransac(pts3d, tracked, feat_valid, cam, sample_idx, cfg, threads,
-                   stream, ticket):
+                   stream, ticket, out=None):
     n = pts3d.shape[0]
     h, s = sample_idx.shape
     k = ransac_candidates(cfg, h)
     th = cfg.inlier_threshold_px
-    pts3d, tracked, feat_valid, cam, sample_idx = (
-        x.contiguous() for x in (pts3d, tracked, feat_valid, cam,
-                                 sample_idx))
     dev = pts3d.device
     clusters = -(-k // CLUSTER)
     scratch = torch.empty((clusters * 13 * h + 18 * k,), dtype=torch.float32,
                           device=dev)
-    motion = torch.empty((4, 4), dtype=torch.float32, device=dev)
-    success = torch.empty((), dtype=torch.bool, device=dev)
-    count = torch.empty((), dtype=torch.int32, device=dev)
+    motion, success, count = out or (
+        torch.empty((4, 4), dtype=torch.float32, device=dev),
+        torch.empty((), dtype=torch.bool, device=dev),
+        torch.empty((), dtype=torch.int32, device=dev))
     rc = _lib().ransac_gn(
         pts3d.data_ptr(), tracked.data_ptr(), feat_valid.data_ptr(),
         sample_idx.data_ptr(), cam.data_ptr(), scratch.data_ptr(),

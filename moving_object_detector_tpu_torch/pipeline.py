@@ -9,8 +9,9 @@ runs eagerly; most JAX ``lax.cond``s become Python branches on flags
 fetched from the device, the tracker's a selection on the device. The
 flow stage, which fetches nothing, replays CUDA graphs on the card
 (``utils/cuda_graphs.py``), its correlations or lookups launched between
-them (``_flow_forward``); so does the tracker stage
-(``tracker.track_frame``). The state lives on the device of
+them (``_flow_forward``); so do the tracker stage
+(``tracker.track_frame``) and ego-motion, in two halves around its one
+wait (``egomotion.estimate_motion``). The state lives on the device of
 ``PipelineState.create``, which is ``cuda`` unless the caller passes
 ``device="cpu"``.
 """

@@ -11,13 +11,17 @@ shapes, dtypes, configuration), None where ``graphable`` is false. The
 cache counts ``<stage>_graph_captures`` and ``<stage>_graph_replays`` a
 call; a capture is sync site ``<stage>_graph_capture``. A hand-written
 kernel whose wrapper calls ``cut_point`` launches between the graphs,
-through its module attribute, where the benchmark's wrappers see it.
+through its module attribute, where the benchmark's wrappers see it. A
+stage that draws random numbers draws them from CUDA generators it names
+at capture (``generators``): each graph reads their seed and offset as
+they are at its replay and moves the offset on, as an eager draw would.
 """
 
 from __future__ import annotations
 
 import contextlib
 import sys
+import warnings
 
 import torch
 
@@ -45,31 +49,42 @@ def graphable(*tensors) -> bool:
 def cut_point(module: str, name: str, args: tuple, shape, dtype, device):
     """Called by the kernel wrapper ``module.name`` before its launch.
     While a capture runs on this stream it ends the current graph, keeps
-    the launch (the wrapper, ``args`` and an output buffer of ``shape``) for
-    each replay to make between that graph and the next, begins the next
-    graph, and returns the buffer; else None, and the wrapper launches."""
+    the launch (the wrapper, ``args`` and an output buffer of ``shape`` and
+    ``dtype``, or a tuple of buffers where both are tuples, one an output)
+    for each replay to make between that graph and the next, begins the
+    next graph, and returns the buffers; else None, and the wrapper
+    launches."""
     capture = _cutting
     if capture is None or not torch.cuda.is_current_stream_capturing():
         return None
     return capture.cut(sys.modules[module], name, args, shape, dtype, device)
 
 
+def _buffers(shape, dtype, device):
+    if isinstance(dtype, torch.dtype):
+        return torch.empty(shape, dtype=dtype, device=device)
+    return tuple(_buffers(s, d, device) for s, d in zip(shape, dtype))
+
+
 class _Capture:
     """A function captured into CUDA graphs of one private memory pool, a
     new graph after each ``cut``."""
 
-    def __init__(self):
+    def __init__(self, generators=()):
         self.pool = torch.cuda.graph_pool_handle()
+        self.generators = generators
         self.segments, self.cuts = [], []
 
     def _begin(self):
-        self.segments.append(torch.cuda.CUDAGraph())
-        self.segments[-1].capture_begin(pool=self.pool,
-                                        capture_error_mode="thread_local")
+        graph = torch.cuda.CUDAGraph()
+        for g in self.generators:
+            graph.register_generator_state(g)
+        graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+        self.segments.append(graph)
 
     def cut(self, module, name, args, shape, dtype, device):
         self.segments[-1].capture_end()
-        out = torch.empty(shape, dtype=dtype, device=device)
+        out = _buffers(shape, dtype, device)
         self.cuts.append((module, name, args, out))
         self._begin()
         return out
@@ -85,7 +100,12 @@ class _Capture:
         finally:
             _cutting = None
             if torch.cuda.is_current_stream_capturing():
-                self.segments[-1].capture_end()
+                with warnings.catch_warnings():
+                    # A function that returns a cut's buffers leaves its
+                    # last graph empty, which replays as nothing.
+                    warnings.filterwarnings("ignore",
+                                            "The CUDA Graph is empty")
+                    self.segments[-1].capture_end()
 
 
 class Graph:
@@ -105,12 +125,14 @@ class Graph:
         self.spans, self.held = spans, held
 
     @classmethod
-    def capture(cls, name: str, fn, static: tuple, spans=None, hold=None):
+    def capture(cls, name: str, fn, static: tuple, spans=None, hold=None,
+                generators=()):
         """(graph, result): ``fn(*static)`` run eagerly on a side stream,
         which builds what is made lazily (kernels' libraries, cuDNN's plans,
         constants), then captured there on the same static inputs, inside
         ``hold()`` where given, whose value the graph keeps (sync site
-        ``<name>_graph_capture``); and the eager run's result."""
+        ``<name>_graph_capture``), each segment reading the CUDA
+        ``generators`` at its replay; and the eager run's result."""
         inputs = trees.leaves(static)
         dev = inputs[0].device
         cur = torch.cuda.current_stream(dev)
@@ -121,7 +143,7 @@ class Graph:
         cur.wait_stream(side)
         for x in trees.leaves(first):
             x.record_stream(cur)
-        capture = _Capture()
+        capture = _Capture(generators)
         with (hold or contextlib.nullcontext)() as held, \
                 profiling.sync_point(f"{name}_graph_capture"):
             torch.cuda.synchronize(dev)
@@ -170,12 +192,12 @@ class GraphCache:
         self.graphs: dict = {}
         self._counters = (f"{name}_graph_captures", f"{name}_graph_replays")
 
-    def __call__(self, key, fn, args: tuple, capture=None):
+    def __call__(self, key, fn, args: tuple, capture=None, generators=()):
         """``fn(*args)``: replayed from the graph of ``key``; else, while
         fewer than ``MAX_GRAPHS`` are held, captured (``capture()``, the
         stage's own (graph, result), or ``Graph.capture`` of ``fn`` on
-        clones of ``args``) and the eager result returned; else, and where
-        ``key`` is None, run eagerly."""
+        clones of ``args`` reading ``generators``) and the eager result
+        returned; else, and where ``key`` is None, run eagerly."""
         graph = None if key is None else self.graphs.get(key)
         new = (key is not None and graph is None
                and len(self.graphs) < MAX_GRAPHS)
@@ -188,7 +210,8 @@ class GraphCache:
             return fn(*args)
         if capture is None:
             graph, out = Graph.capture(self.name, fn,
-                                       trees.map_tensors(args, torch.clone))
+                                       trees.map_tensors(args, torch.clone),
+                                       generators=generators)
         else:
             graph, out = capture()
         self.graphs[key] = graph

@@ -1,5 +1,6 @@
 """A stand-in for the port's captured-graph type on the CPU (the tests of
-``utils/cuda_graphs.py`` and of the flow and tracker stages share it).
+``utils/cuda_graphs.py`` and of the flow, tracker and ego-motion stages
+share it).
 
 A CUDA graph needs a card. ``StubGraph`` replaces
 ``cuda_graphs.Graph``'s capture and keeps its real replay
@@ -13,7 +14,7 @@ import types
 
 import torch
 
-from moving_object_detector_tpu_torch import pipeline, tracker
+from moving_object_detector_tpu_torch import egomotion, pipeline, tracker
 from moving_object_detector_tpu_torch.utils import cuda_graphs, trees
 
 
@@ -38,7 +39,8 @@ class StubGraph(cuda_graphs.Graph):
     captured = []
 
     @classmethod
-    def capture(cls, name, fn, static, spans=None, hold=None):
+    def capture(cls, name, fn, static, spans=None, hold=None,
+                generators=()):
         first = fn(*static)
         outputs = trees.map_tensors(first, torch.empty_like)
         cls.captured.append((name, static))
@@ -58,9 +60,10 @@ def as_on_a_card(monkeypatch):
 
 def install(monkeypatch):
     """``StubGraph`` in place of ``Graph``, with an empty log, and empty
-    flow and tracker caches for the test."""
+    flow, tracker and both ego-motion caches for the test."""
     monkeypatch.setattr(cuda_graphs, "Graph", StubGraph)
     monkeypatch.setattr(StubGraph, "captured", [])
-    monkeypatch.setattr(pipeline._flow_cache, "graphs", {})
-    monkeypatch.setattr(tracker._tracker_cache, "graphs", {})
+    for cache in (pipeline._flow_cache, tracker._tracker_cache,
+                  egomotion._dense_cache, egomotion._lk_cache):
+        monkeypatch.setattr(cache, "graphs", {})
     return StubGraph

@@ -1,8 +1,9 @@
 """The port's one CUDA-graph cache (``utils/cuda_graphs.py``) on the CPU,
-through both stages that take it, the flow (``pipeline._flow_forward``)
-and the tracker (``tracker.track_frame``): what routes to it, the bound,
-the copy in and the copy out; then the cut point a kernel wrapper calls
-and the graphability test.
+through the stages that take it, the flow (``pipeline._flow_forward``),
+the tracker (``tracker.track_frame``) and ego-motion
+(``egomotion.estimate_motion``): what routes to it, the bound, the copy
+in and the copy out; ego-motion's two halves and the draw they take; then
+the cut point a kernel wrapper calls and the graphability test.
 
 A CUDA graph needs a card: ``graph_stub.StubGraph`` stands in for the
 captured graphs, and ``graph_stub.as_on_a_card`` makes ``graphable`` take
@@ -20,10 +21,14 @@ import torch
 import graph_stub
 from tracker_cases import CASES
 from moving_object_detector_tpu_torch import config as tcfg
+from moving_object_detector_tpu_torch import egomotion as tego
 from moving_object_detector_tpu_torch import pipeline
 from moving_object_detector_tpu_torch import tracker as ttr
 from moving_object_detector_tpu_torch.models.pwc_net import PWCNet
-from moving_object_detector_tpu_torch.types import MovingObjects
+from moving_object_detector_tpu_torch.ops import gauss_newton_cuda
+from moving_object_detector_tpu_torch.types import (CameraModel,
+                                                    DisparityImage,
+                                                    MovingObjects)
 from moving_object_detector_tpu_torch.utils import (cuda_graphs, profiling,
                                                     trees)
 
@@ -32,7 +37,7 @@ torch.set_num_threads(2)
 H, W = 32, 48
 FLOW_CFG = tcfg.FlowNetConfig(feature_channels=(8, 16, 32), search_range=2,
                               use_context_net=False, dtype="float32")
-STAGES = ["flow", "tracker"]
+STAGES = ["flow", "tracker", "egomotion"]
 
 
 def _equal(a, b):
@@ -123,8 +128,60 @@ class _Tracker:
         return out
 
 
+class _Ego:
+    """Ego-motion on a textured plane 5 m ahead, the camera moved 2 px to
+    the left between the frames (the exact flow, so no pair falls back
+    unless its configuration forces it); a signature is an image width."""
+
+    CFG = tcfg.EgoMotionConfig(max_features=64, nms_radius=2,
+                               lk_pyramid_levels=2, lk_window=5, lk_iters=4,
+                               ransac_hypotheses=16, min_inliers=8)
+    FORCED = dataclasses.replace(CFG, lk_fallback_frac=1.01)
+    FX, Z0, BASELINE = 60.0, 5.0, 0.5
+
+    def inputs(self, sig=0, seed=4, cfg=None, dense=True):
+        h, w = 48, 64 + 8 * sig
+        rng = np.random.default_rng(seed)
+        img = np.kron(rng.random((h // 4, w // 4)), np.ones((4, 4)))
+        prev = torch.from_numpy(img.astype(np.float32))
+        prev = (prev + prev.roll(1, 0) + prev.roll(1, 1)) / 3.0
+        disp = DisparityImage.create(
+            torch.full((h, w), self.FX * self.BASELINE / self.Z0),
+            f=self.FX, t=self.BASELINE)
+        cam = CameraModel.create(self.FX, self.FX, w / 2.0, h / 2.0,
+                                 device="cpu")
+        flow = torch.zeros((h, w, 2))
+        flow[..., 0] = 2.0
+        return (prev, prev.roll(2, 1), disp, cam, seed, cfg or self.CFG,
+                flow if dense else None)
+
+    def track(self, inputs):
+        inputs[0].requires_grad_(True)
+
+    def run(self, inputs):
+        prev, now, disp, cam, seed, cfg, flow = inputs
+        gen = torch.Generator().manual_seed(seed)
+        return tego.estimate_motion(prev, now, disp, cam, gen, cfg,
+                                    dense_flow=flow), gen.get_state()
+
+    def eager(self, inputs):
+        with pytest.MonkeyPatch.context() as m:
+            m.setattr(cuda_graphs, "graphable", lambda *ts: False)
+            return self.run(inputs)
+
+    def sequence(self, n):
+        """``n`` calls of one signature: [(result, eager result)]."""
+        return [(self.run(self.inputs(seed=k)), self.eager(self.inputs(
+            seed=k))) for k in range(n)]
+
+
 def _stage(name):
-    return _Flow() if name == "flow" else _Tracker()
+    return {"flow": _Flow, "tracker": _Tracker, "egomotion": _Ego}[name]()
+
+
+def _cache(name):
+    return {"flow": pipeline._flow_cache, "tracker": ttr._tracker_cache,
+            "egomotion": tego._dense_cache}[name]
 
 
 @pytest.fixture
@@ -147,7 +204,7 @@ def test_cpu_and_tracked_inputs_capture_nothing_and_count_zero(
     inputs untracked on a card capture."""
     stage = _stage(name)
     stub = graph_stub.install(monkeypatch)
-    cache = pipeline._flow_cache if name == "flow" else ttr._tracker_cache
+    cache = _cache(name)
     results = []
     with profiling.recording() as rec:
         profiling.set_unit(0)
@@ -176,7 +233,7 @@ def test_past_the_bound_a_signature_runs_eagerly_and_no_graph_is_freed(
     third runs eagerly, counted as neither, and the first replays its
     graph, which is still the one captured."""
     stage = _stage(name)
-    cache = pipeline._flow_cache if name == "flow" else ttr._tracker_cache
+    cache = _cache(name)
     monkeypatch.setattr(cuda_graphs, "MAX_GRAPHS", 2)
     with profiling.recording() as rec:
         for k, sig in enumerate((0, 1, 2, 0)):
@@ -199,7 +256,7 @@ def test_a_replay_copies_in_and_returns_copies(name, on_a_card):
     stage = _stage(name)
     with profiling.recording() as rec:
         profiling.set_unit(0)
-        pairs = stage.sequence(4 if name == "flow" else None)
+        pairs = stage.sequence(None if name == "tracker" else 4)
     kept = []
     for got, want in pairs:
         _equal(got, want)
@@ -213,12 +270,10 @@ def test_a_replay_copies_in_and_returns_copies(name, on_a_card):
     assert [s for s, _ in on_a_card.captured] == [name]
 
 
-def test_a_cut_kernel_launches_through_its_module_attribute(monkeypatch):
-    """While a capture runs, each call of a wrapper's ``cut_point`` ends
-    the graph, keeps the launch and an output buffer, begins the next
-    graph and hands the buffer back; a replay launches each between its
-    graphs through the module attribute as it is then, so a wrapper set
-    after the capture is the one called."""
+def _fake_graphs(monkeypatch) -> list:
+    """``torch.cuda.CUDAGraph`` and the capture state replaced by stand-ins
+    that log to the returned list: ("register", k, generator), ("begin",
+    k), ("end", k) and ("segment", k) of the k-th graph made."""
     log, made, capturing = [], [], [False]
 
     class FakeGraph:
@@ -227,6 +282,9 @@ def test_a_cut_kernel_launches_through_its_module_attribute(monkeypatch):
         def __init__(self):
             self.k = len(made)
             made.append(self)
+
+        def register_generator_state(self, generator):
+            log.append(("register", self.k, generator))
 
         def capture_begin(self, pool=None, capture_error_mode=None):
             log.append(("begin", self.k))
@@ -243,6 +301,16 @@ def test_a_cut_kernel_launches_through_its_module_attribute(monkeypatch):
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: (0, 1))
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
                         lambda: capturing[0])
+    return log
+
+
+def test_a_cut_kernel_launches_through_its_module_attribute(monkeypatch):
+    """While a capture runs, each call of a wrapper's ``cut_point`` ends
+    the graph, keeps the launch and an output buffer, begins the next
+    graph and hands the buffer back; a replay launches each between its
+    graphs through the module attribute as it is then, so a wrapper set
+    after the capture is the one called."""
+    log = _fake_graphs(monkeypatch)
     mod = types.ModuleType("stand_in_kernels")
 
     def scale(x, k, out=None):
@@ -278,6 +346,142 @@ def test_a_cut_kernel_launches_through_its_module_attribute(monkeypatch):
                    ("segment", 2)]
     assert torch.equal(capture.cuts[0][3], (x + 1) * 2)
     assert torch.equal(got, out) and got.data_ptr() != out.data_ptr()
+
+
+def test_a_three_output_cut_and_the_generators_each_segment_reads(
+        monkeypatch):
+    """A wrapper with three outputs (the RANSAC's motion, success and
+    count) cuts with a tuple of shapes and dtypes: the capture hands back
+    three buffers, and a replay launches the wrapper between the graphs
+    with them as ``out``. A capture given generators registers each with
+    every segment before it begins."""
+    log = _fake_graphs(monkeypatch)
+    mod = types.ModuleType("stand_in_solver")
+
+    def solve(x, k, out=None):
+        cut = cuda_graphs.cut_point(
+            mod.__name__, "solve", (x, k), ((4, 4), (), ()),
+            (torch.float32, torch.bool, torch.int32), x.device)
+        if cut is not None:
+            return cut
+        log.append(("launch", k))
+        motion, ok, count = out
+        return (motion.copy_(torch.eye(4) * x.sum()), ok.fill_(k > 1),
+                count.fill_(k))
+
+    mod.solve = solve
+    monkeypatch.setitem(sys.modules, mod.__name__, mod)
+    gens = (torch.Generator(), torch.Generator())
+    capture = cuda_graphs._Capture(gens)
+    out = capture.run(lambda a: mod.solve(a * 2, 3), (torch.ones(2),))
+    assert [e[:2] for e in log] == [
+        ("register", 0), ("register", 0), ("begin", 0), ("end", 0),
+        ("register", 1), ("register", 1), ("begin", 1), ("end", 1)]
+    assert [e[2] for e in log if e[0] == "register"] == list(gens) * 2
+    ((_, name, args, bufs),) = capture.cuts
+    assert name == "solve" and args[1] == 3 and out is bufs
+    assert [(tuple(b.shape), b.dtype) for b in bufs] == [
+        ((4, 4), torch.float32), ((), torch.bool), ((), torch.int32)]
+    log.clear()
+    x = torch.ones(2)
+    graph = cuda_graphs.Graph(capture.segments, capture.cuts, [x], out)
+    motion, ok, count = graph((torch.full((2,), 5.0),))
+    assert log == [("segment", 0), ("launch", 3), ("segment", 1)]
+    assert torch.equal(motion, torch.eye(4) * 4.0)
+    assert bool(ok) and int(count) == 3 and motion.data_ptr() != \
+        bufs[0].data_ptr()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7, 2 ** 31 + 5, (7 << 32) + 12])
+def test_the_capture_safe_draw_is_bitwise_multinomial(seed):
+    """``egomotion._draw`` gives ``torch.multinomial``'s indices without
+    replacement for the same seeded generator, two draws in a row (the
+    dense RANSAC's and the LK fallback's), over the RANSAC's weights:
+    valid features 1, the others the 1e-20 floor, also where fewer than
+    three are valid."""
+    rng = np.random.default_rng(seed % 2 ** 32)
+    for n, valid in ((512, 0.7), (37, 0.3), (16, 0.0)):
+        feat_valid = torch.from_numpy(rng.random(n) < valid)
+        p = torch.clamp(feat_valid.float(), min=1e-20).expand(64, n)
+        a = torch.Generator().manual_seed(seed)
+        b = torch.Generator().manual_seed(seed)
+        for _ in range(2):
+            want = torch.multinomial(p, 3, replacement=False, generator=a)
+            assert torch.equal(tego._draw(p, 3, b), want)
+        assert torch.equal(a.get_state(), b.get_state())
+
+
+def test_egomotion_halves_replay_their_graphs_bitwise_with_counters(
+        on_a_card):
+    """Dense pairs replay the dense half's graph; a forced-fallback
+    configuration captures a dense graph of its own and the LK half's, and
+    its pairs replay both; a pair without a dense flow takes the LK-only
+    graph. Each result and the caller's generator after the stage bitwise
+    the eager stage's; counters a pair: the dense graph's captures and
+    replays, ``egomotion_lk_fallbacks``, and the LK graph's replays equal
+    to the fallbacks."""
+    stage = _Ego()
+    plan = [dict(), dict(), dict(cfg=_Ego.FORCED), dict(cfg=_Ego.FORCED),
+            dict(), dict(dense=False), dict(dense=False)]
+    eager = [stage.eager(stage.inputs(seed=k, **kw))
+             for k, kw in enumerate(plan)]
+    with profiling.recording() as rec:
+        for k, kw in enumerate(plan):
+            profiling.set_unit(k)
+            _equal(stage.run(stage.inputs(seed=k, **kw)), eager[k])
+
+    def read(name):
+        return [rec.counters[(name, k)] for k in range(len(plan))]
+
+    assert read("egomotion_graph_captures") == [1, 0, 1, 0, 0, 0, 0]
+    assert read("egomotion_graph_replays") == [0, 1, 0, 1, 1, 0, 0]
+    assert read("egomotion_lk_fallbacks") == [0, 0, 1, 1, 0, 0, 0]
+    assert read("egomotion_lk_graph_captures") == [0, 0, 1, 0, 0, 1, 0]
+    assert read("egomotion_lk_graph_replays") == [0, 0, 0, 1, 0, 0, 1]
+    assert [n for n, _ in on_a_card.captured] == [
+        "egomotion", "egomotion", "egomotion_lk", "egomotion_lk"]
+    assert len(tego._dense_cache.graphs) == 2
+    assert len(tego._lk_cache.graphs) == 2
+    assert all(bool(r[1]) for r, _ in eager)
+
+
+def test_an_injected_draw_runs_the_egomotion_stage_eagerly(on_a_card):
+    """Injected hypothesis indices (a test's own draw) run the stage
+    eagerly: no graph captured, 0 captures and replays counted."""
+    stage = _Ego()
+    prev, now, disp, cam, _, cfg, flow = stage.inputs()
+    idx = torch.arange(48).reshape(16, 3) % 40
+    with profiling.recording() as rec:
+        profiling.set_unit(0)
+        got = tego.estimate_motion(prev, now, disp, cam, None, cfg,
+                                   dense_flow=flow, sample_idx=idx)
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(cuda_graphs, "graphable", lambda *ts: False)
+        want = tego.estimate_motion(prev, now, disp, cam, None, cfg,
+                                    dense_flow=flow, sample_idx=idx)
+    _equal(got, want)
+    assert not on_a_card.captured
+    assert rec.counters[("egomotion_graph_captures", 0)] == 0
+    assert rec.counters[("egomotion_graph_replays", 0)] == 0
+
+
+def test_the_ransac_wrapper_writes_into_given_buffers():
+    """``ransac_solve`` on CPU tensors with ``out`` (a graph's cut
+    buffers) writes the plain version's result into them and returns
+    them."""
+    stage = _Ego()
+    prev, _, disp, cam, _, cfg, _ = stage.inputs()
+    pts, pts3d, valid = tego._features(prev, disp, cam, cfg, border=2)
+    idx = torch.arange(48).reshape(16, 3) % int(valid.sum())
+    vec = gauss_newton_cuda.camera_vector(cam)
+    want = gauss_newton_cuda.ransac_solve(pts3d, pts + 2.0, valid, vec, idx,
+                                          cfg)
+    out = (torch.empty((4, 4)), torch.empty((), dtype=torch.bool),
+           torch.empty((), dtype=torch.int32))
+    got = gauss_newton_cuda.ransac_solve(pts3d, pts + 2.0, valid, vec, idx,
+                                         cfg, out=out)
+    assert all(a is b for a, b in zip(got, out))
+    _equal(got, want)
 
 
 def test_graphable_follows_device_and_autograd():

@@ -1725,3 +1725,166 @@ def test_replayed_tracker_makes_no_host_wait(cuda):
                for a, b in zip(first, trees.leaves(outs[0])))
     assert not any(a.data_ptr() == b.data_ptr() for a, b in zip(
         trees.leaves(outs[0]), trees.leaves(outs[1])))
+
+
+def _ego_pairs(cuda, net):
+    """Ego-motion's inputs on 5 serving pairs of ``_patch_frames``: the
+    previous left image, the current one, the previous pair's SGM
+    disparity (scale 2) and the flow from ``net`` ("pwc": pwc_v7 at scale
+    2, mostly dense pairs; "raft": a random RAFT at KITTI's full frame,
+    whose flow sends every pair to the LK fallback), all 376 x 1242; for
+    "pwc" a sixth pair with a flow of noise, a fallback pair. Returns
+    (pairs, camera, configuration)."""
+    from moving_object_detector_tpu_torch import config as cfgmod
+    from moving_object_detector_tpu_torch import pipeline
+    from moving_object_detector_tpu_torch.types import StereoModel
+
+    h, w, fx = 376, 1242, 721.5
+    config = cfgmod.PipelineConfig(height=h, width=w, sgm_input_scale=2)
+    stereo = StereoModel.create(fx=fx, fy=fx, cx=w / 2.0, cy=h / 2.0,
+                                baseline=0.54, device=cuda)
+    if net == "pwc":
+        model, backend = _pwc_v7(cuda)
+        scale = 2
+    else:
+        model, backend, scale = _raft_at_kitti(cuda), None, 1
+    frames = [(torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda))
+              for a, b in _patch_frames(6)]
+    pairs = []
+    for (pl, pr), (nl, _) in zip(frames, frames[1:]):
+        disp = pipeline._sgm_forward(pl, pr, stereo, config)
+        flow = pipeline._flow_eager(model, pl, nl, scale, backend)
+        pairs.append((pl, nl, disp, flow))
+    if net == "pwc":
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        pl, nl, disp, flow = pairs[-1]
+        pairs.append((pl, nl, disp, 40.0 * torch.randn(
+            flow.shape, generator=gen, device=cuda)))
+    return pairs, stereo.cam, config.egomotion
+
+
+def _ego(pairs, cam, cfg, k, eager=False, monkeypatch=None):
+    """``estimate_motion`` on pair ``k`` with the pipeline's generator of
+    frame ``k``, eagerly where asked: (result, generator state after)."""
+    from moving_object_detector_tpu_torch import egomotion, pipeline
+    from moving_object_detector_tpu_torch.utils import cuda_graphs
+
+    prev, now, disp, flow = pairs[k]
+    gen = pipeline.ransac_generator(k, prev.device)
+    with monkeypatch.context() as m:
+        if eager:
+            m.setattr(cuda_graphs, "graphable", lambda *ts: False)
+        out = egomotion.estimate_motion(prev, now, disp, cam, gen, cfg,
+                                        dense_flow=flow)
+    return out, gen.get_state()
+
+
+@pytest.mark.parametrize("net", ["pwc", "raft"])
+def test_egomotion_graphs_are_bitwise_the_eager_stage(cuda, net,
+                                                      monkeypatch):
+    """Serving pairs through ``estimate_motion`` twice in a row (a pair's
+    first call may capture, the second replays): each result and the
+    caller's generator after it bitwise the eager stage's, dense pairs and
+    fallback pairs both; the LK graph replayed on exactly the pairs that
+    fall back."""
+    from moving_object_detector_tpu_torch.utils import profiling
+
+    pairs, cam, cfg = _ego_pairs(cuda, net)
+    eager = [_ego(pairs, cam, cfg, k, True, monkeypatch)
+             for k in range(len(pairs))]
+    fallbacks, lk_replays = [], []
+    with profiling.recording() as rec:
+        for k, want in enumerate(eager):
+            for rep in range(2):
+                unit = 2 * k + rep
+                profiling.set_unit(unit)
+                assert _same_bits(_ego(pairs, cam, cfg, k,
+                                       monkeypatch=monkeypatch), want), k
+            assert rec.counters[("egomotion_graph_replays", unit)] == 1
+            fallbacks.append(rec.counters[("egomotion_lk_fallbacks", unit)])
+            lk_replays.append(rec.counters[("egomotion_lk_graph_replays",
+                                            unit)])
+    assert lk_replays == fallbacks
+    assert all(fallbacks) if net == "raft" else 0 < sum(fallbacks) < len(
+        fallbacks)
+    print(f"{net}: fallbacks {fallbacks}")
+
+
+def test_replayed_egomotion_waits_once_for_the_fallback_flag(
+        cuda, monkeypatch):
+    """After their captures, a dense pair and a fallback pair run with the
+    card's sync check set to raise outside named sites: the one host wait
+    of each is ``egomotion_lk_fallback``."""
+    from moving_object_detector_tpu_torch.utils import profiling
+
+    pairs, cam, cfg = _ego_pairs(cuda, "pwc")
+    picks = (1, len(pairs) - 1)
+    for k in picks:
+        _ego(pairs, cam, cfg, k, monkeypatch=monkeypatch)
+    torch.cuda.synchronize()
+    with profiling.recording() as rec:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for k in picks:
+                profiling.set_unit(k)
+                with profiling.span("egomotion"):
+                    _ego(pairs, cam, cfg, k, monkeypatch=monkeypatch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    for k in picks:
+        syncs = [s.name for s in rec.spans() if s.unit == k
+                 and s.name.startswith(profiling.SYNC_PREFIX)]
+        assert syncs == ["sync.egomotion_lk_fallback"], (k, syncs)
+    assert [rec.counters[("egomotion_lk_fallbacks", k)] for k in picks] == [
+        0, 1]
+
+
+def test_profiled_egomotion_replay_reaches_the_ransac_attribute(
+        cuda, monkeypatch):
+    """Under torch.profiler a replayed dense pair launches
+    ``ransac_gn_kernel`` once, a fallback pair twice, each a call of the
+    module's ``ransac_solve`` (where the benchmark's recorder wraps it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pairs, cam, cfg = _ego_pairs(cuda, "pwc")
+    real = gauss_newton_cuda.ransac_solve
+    for k, want in ((1, 1), (len(pairs) - 1, 2)):
+        _ego(pairs, cam, cfg, k, monkeypatch=monkeypatch)
+        calls = []
+
+        def seen(*args, **kwargs):
+            calls.append(tuple(args[4].shape))
+            return real(*args, **kwargs)
+
+        monkeypatch.setattr(gauss_newton_cuda, "ransac_solve", seen)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _ego(pairs, cam, cfg, k, monkeypatch=monkeypatch)
+            torch.cuda.synchronize()
+        monkeypatch.setattr(gauss_newton_cuda, "ransac_solve", real)
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "ransac_gn_kernel" in e.name]
+        assert len(calls) == want and set(calls) == {(64, 3)}, k
+        assert len(kernels) == want, k
+
+
+@pytest.mark.parametrize("seed", [0, 5, 2 ** 31 + 9, (7 << 32) + 40])
+def test_the_capture_safe_draw_is_bitwise_multinomial_on_the_card(
+        cuda, seed):
+    """On the card ``egomotion._draw`` gives ``torch.multinomial``'s
+    indices for the same seeded CUDA generator, two draws in a row, and
+    leaves the generator where multinomial does."""
+    from moving_object_detector_tpu_torch import egomotion
+
+    rng = np.random.default_rng(seed % 2 ** 32)
+    for n, valid in ((512, 0.7), (37, 0.3), (16, 0.0)):
+        feat_valid = torch.from_numpy(rng.random(n) < valid).to(cuda)
+        p = torch.clamp(feat_valid.float(), min=1e-20).expand(64, n)
+        a = torch.Generator(device=cuda).manual_seed(seed)
+        b = torch.Generator(device=cuda).manual_seed(seed)
+        for _ in range(2):
+            want = torch.multinomial(p, 3, replacement=False, generator=a)
+            assert torch.equal(egomotion._draw(p, 3, b), want)
+        assert torch.equal(a.get_state(), b.get_state())
